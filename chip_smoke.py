@@ -1,0 +1,236 @@
+"""GPU smoke check of the PyTorch port (kvazzup_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (each prints its own lines; any failure raises and exits non-zero):
+  1. the card's name and power limit (nvidia-smi), then the CUDA kernel build;
+  2. each hand kernel (SATD, quant, dequant) against its plain PyTorch
+     version on the card at the 1080p main-path shapes, element-identical
+     (tolerance 0), plus first-index tie-breaking of argmin / stable sort;
+  3. a 1920x1080 IDR + 3 P encode of synthetic_frames(1920, 1080, 4,
+     seed=12) at QP 32 with the CLI defaults through `Encoder` on cuda:
+     per-frame bytes, stream SHA-256 and recon SHA-256 against the JAX golden
+     (kvazzup_tpu_torch/golden/ld_1080p_q32.json), per-frame device and
+     entropy times, and the launch count of every kernel (all must be > 0);
+  4. kernel vs plain times at the main-path shapes (CUDA events).
+The next-to-last line is the kernels JSON, the last line
+{"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
+prints no result.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from kvazzup_tpu_torch import runtime
+from kvazzup_tpu_torch.encoder.top import Encoder
+from kvazzup_tpu_torch.inputs import stream_config, synthetic_frames
+from kvazzup_tpu_torch.ops import hopper_q
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(ROOT, "kvazzup_tpu_torch", "golden", "ld_1080p_q32.json")
+SOURCE = "kvazzup_tpu_torch/csrc/q_kernels.cu"
+REPLACES = {"satd": "kvazzup_tpu/ops/pallas_q.py:85",
+            "quant": "kvazzup_tpu/ops/pallas_q.py:56",
+            "dequant": "kvazzup_tpu/ops/pallas_q.py:70"}
+NCTU, LANES = 8160, 68  # 1920x1088 at CTB16: 120 x 68 CTUs, 68 lanes per wave
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True, text=True,
+                       check=True, timeout=60)
+    return r.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_cases(dev):
+    """(kernel, label, kernel_fn, plain_fn) at the 1080p main-path shapes."""
+    rng = np.random.default_rng(2026)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def qrows(b):
+        return t(rng.integers(0, 52, (b,)).astype(np.int32))
+
+    def dzrows(b):
+        return t(np.where(rng.integers(0, 2, (b,)) > 0, 171, 85).astype(np.int32))
+
+    cases = []
+    # SATD: P-frame ME cost (8160, 256); IDR prepass 35 predictions against
+    # the broadcast original (8160*35 rows); in-wave merge cost (68, 256)
+    pix = lambda *s: t(rng.integers(0, 256, s).astype(np.int32))  # noqa: E731
+    a, b = pix(NCTU, 256), pix(NCTU, 256)
+    cases.append(("satd", "ME (8160,256)", lambda a=a, b=b: hopper_q.satd_rows(a, b, 4),
+                  lambda a=a, b=b: hopper_q.satd_rows_plain(a, b, 4)))
+    a35, o = pix(NCTU * 35, 256), pix(NCTU, 256)
+    cases.append(("satd", "prepass (8160*35,256) bcast",
+                  lambda: hopper_q.satd_rows(a35, o, 4, group=35),
+                  lambda: hopper_q.satd_rows_plain(a35, o, 4, group=35)))
+    aw, bw = pix(LANES, 256), pix(LANES, 256)
+    cases.append(("satd", "wave (68,256)", lambda: hopper_q.satd_rows(aw, bw, 4),
+                  lambda: hopper_q.satd_rows_plain(aw, bw, 4)))
+    for rows, k, log2, label in ((NCTU * 3, 256, 4, "prepass (8160*3,256)"),
+                                 (LANES, 256, 4, "wave luma (68,256)"),
+                                 (LANES, 64, 3, "wave chroma (68,64)")):
+        c = t(rng.integers(-30000, 30000, (rows, k)).astype(np.int32))
+        lv = t(rng.integers(-32768, 32768, (rows, k)).astype(np.int32))
+        qp, dz = qrows(rows), dzrows(rows)
+        cases.append(("quant", label,
+                      lambda c=c, qp=qp, dz=dz, l=log2: hopper_q.quantize_rows(c, qp, dz, l),
+                      lambda c=c, qp=qp, dz=dz, l=log2: hopper_q.quantize_rows_plain(c, qp, dz, l)))
+        cases.append(("dequant", label,
+                      lambda lv=lv, qp=qp, l=log2: hopper_q.dequantize_rows(lv, qp, l),
+                      lambda lv=lv, qp=qp, l=log2: hopper_q.dequantize_rows_plain(lv, qp, l)))
+    return cases
+
+
+def check_kernels(cases) -> dict:
+    """Kernel == plain on every case; returns max abs error per kernel."""
+    err = {}
+    for name, label, kfn, pfn in cases:
+        got, want = kfn(), pfn()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name} {label}: {got.shape}/{got.dtype} vs "
+                                 f"{want.shape}/{want.dtype}")
+        e = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        log(f"  {name:8s} {label:30s} max_abs_err={e} (tolerance 0)")
+        if e != 0:
+            raise AssertionError(f"{name} {label}: kernel disagrees with plain version")
+        err[name] = max(err.get(name, 0), e)
+    return err
+
+
+def check_ties(dev) -> None:
+    """First index wins on ties (argmin) and sorting keeps index order."""
+    x = torch.tensor([[5.0, 1.0, 3.0, 1.0, 1.0]] * 4096, device=dev)
+    if not bool((x.argmin(dim=1) == 1).all()):
+        raise AssertionError("argmin does not return the first minimal index on cuda")
+    idx = torch.sort(x, dim=1, stable=True).indices[:, :3]
+    if not bool((idx == torch.tensor([1, 3, 4], device=dev)).all()):
+        raise AssertionError("stable sort does not keep index order on ties on cuda")
+    i2 = torch.stack([x[:, 1], x[:, 3]]).argmin(dim=0)
+    if not bool((i2 == 0).all()):
+        raise AssertionError("argmin over dim 0 does not return the first index")
+    log("  argmin / stable-sort ties: first index wins")
+
+
+def encode_1080p(dev, golden) -> tuple[list, dict]:
+    w, h, nf = golden["width"], golden["height"], golden["n_frames"]
+    cfg = stream_config(w, h, qp=golden["qp"], merge=golden["merge_cand"])
+    frames = synthetic_frames(w, h, nf, seed=golden["seed"])
+    # warm-up on a throwaway encoder (one IDR and one P): cuBLAS handles,
+    # allocator pools, constant tables
+    warm = Encoder(cfg, intra_period=golden["intra_period"], device=dev)
+    for (y, u, v) in frames[:2]:
+        warm.encode_frame(y, u, v)
+    torch.cuda.synchronize()
+
+    enc = Encoder(cfg, intra_period=golden["intra_period"], device=dev)
+    hopper_q.reset_launches()
+    rows = []
+    for i, (y, u, v) in enumerate(frames):
+        t0 = time.perf_counter()
+        ctx = enc.encode_frame_device(y, u, v)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stream, recon = enc.encode_frame_entropy(ctx)
+        t2 = time.perf_counter()
+        rows.append({"frame": i, "kind": ctx["kind"], "bytes": len(stream),
+                     "sha256": hashlib.sha256(stream).hexdigest(),
+                     "recon_sha256": hashlib.sha256(b"".join(
+                         np.ascontiguousarray(p).tobytes() for p in recon)).hexdigest(),
+                     "device_ms": (t1 - t0) * 1e3, "entropy_ms": (t2 - t1) * 1e3,
+                     "recon_shape": [list(p.shape) for p in recon]})
+    launches = dict(hopper_q.LAUNCHES)
+    for r, g in zip(rows, golden["frames"]):
+        match = r["sha256"] == g["sha256"] and r["bytes"] == g["bytes"]
+        log(f"  frame {r['frame']} ({r['kind']}): {r['bytes']} bytes "
+            f"(golden {g['bytes']}) sha256 {'match' if match else 'MISMATCH'}; "
+            f"recon {'match' if r['recon_sha256'] == g['recon_sha256'] else 'MISMATCH'}; "
+            f"device {r['device_ms']:.1f} ms, entropy {r['entropy_ms']:.1f} ms")
+    log(f"  kernel launches during the encode: {launches}")
+    bad = [r["frame"] for r, g in zip(rows, golden["frames"])
+           if r["sha256"] != g["sha256"] or r["bytes"] != g["bytes"]
+           or r["recon_sha256"] != g["recon_sha256"]]
+    if bad:
+        raise AssertionError(f"1080p stream or recon differs from the JAX golden in frames {bad}")
+    if rows[0]["recon_shape"] != [[h, w], [h // 2, w // 2], [h // 2, w // 2]]:
+        raise AssertionError(f"unexpected recon shape {rows[0]['recon_shape']}")
+    zero = [k for k, v in launches.items() if v <= 0]
+    if zero:
+        raise AssertionError(f"kernels never launched on the main path: {zero}")
+    return rows, launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to PyTorch", file=sys.stderr)
+        return 2
+    dev = runtime.require_cuda()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    card = card_line()
+    log(card)
+
+    log("phase 1: kernel build")
+    t0 = time.perf_counter()
+    so = runtime.build_kernels(verbose=True)
+    runtime.kernel_lib()
+    log(f"  built {os.path.relpath(so, ROOT)} in {time.perf_counter() - t0:.1f} s")
+
+    log("phase 2: kernels vs plain versions at main-path shapes")
+    cases = kernel_cases(dev)
+    errs = check_kernels(cases)
+    check_ties(dev)
+
+    log("phase 3: 1080p IDR+3P encode on cuda vs JAX golden")
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    rows, launches = encode_1080p(dev, golden)
+
+    log("phase 4: kernel vs plain times (CUDA events, mean of 20 after warm-up)")
+    times = {}
+    for name, label, kfn, pfn in cases:
+        km, pm = cuda_ms(kfn), cuda_ms(pfn)
+        log(f"  {name:8s} {label:30s} kernel {km:.4f} ms  plain {pm:.4f} ms")
+        times.setdefault(name, (label, km, pm))  # first case = the largest shape
+    kernels = [{"name": n, "route": "cuda", "source": SOURCE, "replaces": REPLACES[n],
+                "launches": launches[n], "max_abs_err": errs[n], "ms": times[n][1],
+                "plain_ms": times[n][2]}
+               for n in ("satd", "quant", "dequant")]
+    log(json.dumps({"frames": [{k: r[k] for k in ("frame", "kind", "bytes", "device_ms",
+                                                   "entropy_ms")} for r in rows]}))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,97 @@
+"""Command-line encoder for the PyTorch port (counterpart of the
+`encode` command of kvazzup_tpu/cli.py, low-delay CTB16 only).
+
+    python -m kvazzup_tpu_torch encode in.y4m out.265 [--qp 32] [--frames N]
+        [--size WxH] [--intra-period 64] [--merge 1..5] [--no-deblock]
+        [--device cuda|cpu]
+
+Flags of the JAX CLI that select other configurations are accepted only at
+their default value; anything else raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+# flag -> default value; any other value selects an unported path
+_UNPORTED = {"sao": False, "wpp": False, "tiles": 1, "slices": 1, "ctu": 16,
+             "tu_intra_depth": 1, "cu8": False, "rdoq": False, "tmvp": False,
+             "bitdepth": 8, "gop": "ld", "bitrate": 0}
+
+
+def _read_input(path: str, size: str | None, max_frames: int | None):
+    from .inputs import read_y4m, read_yuv420
+
+    if path.endswith(".y4m"):
+        frames, w, h, _fps = read_y4m(path, max_frames)
+        return frames, w, h
+    if not size:
+        raise SystemExit("raw .yuv input requires --size WxH")
+    w, h = (int(t) for t in size.split("x"))
+    return read_yuv420(path, w, h, max_frames), w, h
+
+
+def cmd_encode(args) -> int:
+    from .encoder.top import Encoder
+    from .inputs import psnr, stream_config
+
+    bad = [k for k, dflt in _UNPORTED.items() if getattr(args, k) != dflt]
+    if bad:
+        raise NotImplementedError(
+            f"not ported to kvazzup_tpu_torch: --{', --'.join(b.replace('_', '-') for b in bad)}")
+    frames, w, h = _read_input(args.input, args.size, args.frames)
+    if not frames:
+        raise SystemExit("no frames read")
+    cfg = stream_config(w, h, qp=args.qp, deblock=not args.no_deblock, merge=args.merge)
+    enc = Encoder(cfg, intra_period=args.intra_period, device=args.device)
+    t0 = time.time()
+    total_psnr = 0.0
+    nbytes = 0
+    with open(args.output, "wb") as f:
+        for (y, u, v) in frames:
+            stream, recon = enc.encode_frame(y, u, v)
+            f.write(stream)
+            nbytes += len(stream)
+            total_psnr += psnr(y, recon[0])
+    dt = time.time() - t0
+    print(f"encoded {len(frames)} frames {w}x{h} qp{args.qp} on {args.device}: "
+          f"{nbytes} bytes, {dt:.2f}s ({len(frames) / dt:.2f} fps), "
+          f"mean PSNR-Y {total_psnr / len(frames):.2f} dB")
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="kvazzup_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    pe = sub.add_parser("encode")
+    pe.add_argument("input")
+    pe.add_argument("output")
+    pe.add_argument("--qp", type=int, default=32)
+    pe.add_argument("--size", help="WxH for raw .yuv input")
+    pe.add_argument("--frames", type=int, default=None)
+    pe.add_argument("--intra-period", type=int, default=64)
+    pe.add_argument("--merge", type=int, choices=(1, 2, 3, 4, 5), default=1)
+    pe.add_argument("--no-deblock", action="store_true")
+    pe.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    # JAX-CLI flags whose non-default values select unported paths
+    pe.add_argument("--bitrate", type=int, default=0)
+    pe.add_argument("--sao", action="store_true")
+    pe.add_argument("--wpp", action="store_true")
+    pe.add_argument("--tiles", type=int, default=1)
+    pe.add_argument("--slices", type=int, default=1)
+    pe.add_argument("--ctu", type=int, choices=(16, 32, 64), default=16)
+    pe.add_argument("--tu-intra-depth", type=int, choices=(1, 2), default=1)
+    pe.add_argument("--cu8", action="store_true")
+    pe.add_argument("--rdoq", action="store_true")
+    pe.add_argument("--tmvp", action="store_true")
+    pe.add_argument("--bitdepth", type=int, choices=(8, 10), default=8)
+    pe.add_argument("--gop", choices=["ld", "ra"], default="ld")
+    pe.set_defaults(fn=cmd_encode)
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,177 @@
+"""Encoder top level: frames in, Annex-B bytes out (counterpart of
+kvazzup_tpu/encoder/top.py, CTB16 low-delay branch).
+
+Per frame: device encode (IDR: `encode_frame_intra_fast`, P:
+`encode_frame_p_fast`) -> deblocking -> the reference picture advances ->
+host CABAC (the JAX package's native C writer, numpy in and out) -> NAL
+mux.  Configurations outside that branch raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from kvazzup_tpu.core.nal import NalType, NalUnit, compose_nal
+from kvazzup_tpu.core.params import (SliceHeader, StreamConfig, compose_pps,
+                                     compose_slice_header, compose_sps, compose_vps)
+from kvazzup_tpu.entropy.slice_data import encode_slice_data_intra, encode_slice_data_p
+
+from .. import runtime
+from ..ops.deblock import compute_bs, deblock_frame
+from .frame_inter import encode_frame_p_fast
+from .frame_intra import encode_frame_intra_fast
+
+
+def pad_to_coded(cfg, y, u, v):
+    """Edge-replicate a display-size frame up to the coded (CTB-aligned)
+    size; coded-size input passes through."""
+    y = np.asarray(y)
+    if y.shape == (cfg.height, cfg.width):
+        return y, np.asarray(u), np.asarray(v)
+    py, px = cfg.height - y.shape[0], cfg.width - y.shape[1]
+    return (np.pad(y, ((0, py), (0, px)), mode="edge"),
+            np.pad(np.asarray(u), ((0, py // 2), (0, px // 2)), mode="edge"),
+            np.pad(np.asarray(v), ((0, py // 2), (0, px // 2)), mode="edge"))
+
+
+def crop_display(cfg, ry, ru, rv):
+    """Crop a coded-size recon to the signalled conformance window."""
+    dh, dw = cfg.out_height, cfg.out_width
+    return ry[:dh, :dw], ru[:dh // 2, :dw // 2], rv[:dh // 2, :dw // 2]
+
+
+def _check_supported(cfg: StreamConfig) -> None:
+    unsupported = {
+        "ctb_log2 != 4": cfg.ctb_log2 != 4,
+        "min_cb_log2 != 4": cfg.min_cb_log2 != 4,
+        "max_transform_hierarchy_depth_intra": cfg.max_transform_hierarchy_depth_intra != 0,
+        "bit_depth != 8": cfg.bit_depth != 8,
+        "sao": cfg.sao_enabled,
+        "wpp": cfg.wpp,
+        "tiles": cfg.tile_cols != 1,
+        "slices": cfg.slices != 1,
+        "cu_qp_delta": cfg.cu_qp_delta,
+        "rdoq": cfg.rdoq,
+        "temporal_mvp": cfg.temporal_mvp,
+        "fast_decision off": not cfg.fast_decision,
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            "kvazzup_tpu_torch encodes the CTB16 low-delay path only; "
+            f"unsupported here: {', '.join(bad)}")
+    if not 1 <= cfg.merge_cand <= 5:
+        raise ValueError("merge_cand must be in 1..5")
+    if cfg.width % cfg.ctb_size or cfg.height % cfg.ctb_size:
+        raise ValueError("coded size must be CTB-aligned (use StreamConfig.for_source)")
+
+
+class Encoder:
+    """HEVC encoder: IDR every `intra_period` frames, low-delay P between."""
+
+    def __init__(self, cfg: StreamConfig, intra_period: int = 1, *, device) -> None:
+        _check_supported(cfg)
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            runtime.require_cuda()
+        self.cfg = cfg
+        self.intra_period = max(1, intra_period)
+        self._idr_count = 0
+        self._frame_count = 0
+        self._poc = 0
+        self._ref = None  # (y, u, v) uint8 tensors after the loop filter
+
+    # ---- checkpoint / resume: the DPB plus the chain counters
+    def snapshot(self) -> dict:
+        ref = None if self._ref is None else tuple(p.cpu().numpy() for p in self._ref)
+        return {"frame_count": self._frame_count, "poc": self._poc,
+                "idr_count": self._idr_count, "ref": ref, "col": None}
+
+    def restore(self, snap: dict, device=None) -> None:
+        """Resume from a snapshot (this encoder's or the JAX Encoder's)."""
+        if device is not None:
+            self.device = torch.device(device)
+        if snap.get("col") is not None and self.cfg.temporal_mvp:
+            raise NotImplementedError("TMVP state is not ported")
+        self._frame_count = snap["frame_count"]
+        self._poc = snap["poc"]
+        self._idr_count = snap.get("idr_count", 0)
+        ref = snap["ref"]
+        self._ref = None if ref is None else tuple(
+            torch.as_tensor(np.array(p, dtype=np.uint8), device=self.device)
+            for p in ref)
+
+    def headers(self) -> bytes:
+        cfg = self.cfg
+        return b"".join(compose_nal(n) for n in
+                        (compose_vps(cfg), compose_sps(cfg), compose_pps(cfg)))
+
+    def encode_frame(self, y, u, v, qp: int | None = None):
+        """Returns (annexb_bytes, recon (y, u, v) numpy)."""
+        return self.encode_frame_entropy(self.encode_frame_device(y, u, v, qp))
+
+    def _plane(self, p):
+        return torch.as_tensor(np.array(p, dtype=np.uint8), device=self.device)
+
+    def encode_frame_device(self, y, u, v, qp: int | None = None):
+        """Device stage: wavefront encode + deblocking; advances the
+        reference picture.  Returns a ctx for encode_frame_entropy."""
+        cfg = self.cfg
+        qp = cfg.qp if qp is None else int(qp)
+        if not 0 <= qp <= 51:
+            raise ValueError(f"qp must be in 0..51, got {qp}")
+        y, u, v = (self._plane(p) for p in pad_to_coded(cfg, y, u, v))
+        is_idr = self._frame_count % self.intra_period == 0 or self._ref is None
+        if is_idr:
+            self._idr_count += 1
+            out = encode_frame_intra_fast(y, u, v, qp, width=cfg.width, height=cfg.height)
+            bs_v = bs_h = None
+        else:
+            ry, ru, rv = self._ref
+            out = encode_frame_p_fast(y, u, v, ry, ru, rv, qp, width=cfg.width,
+                                      height=cfg.height, merge_cand=cfg.merge_cand)
+            bs_v, bs_h = compute_bs(out["ctype"], (out["lev_y"] != 0).any(dim=2).any(dim=1),
+                                    out["mv"], cfg.ctbs_w, cfg.ctbs_h)
+        ry, ru, rv = out["recon_y"], out["recon_u"], out["recon_v"]
+        if cfg.deblocking_enabled:
+            ry, ru, rv = deblock_frame(ry, ru, rv, qp, spacing=cfg.ctb_size,
+                                       bs_v=bs_v, bs_h=bs_h)
+        first = self._frame_count == 0
+        self._frame_count += 1
+        self._poc = 0 if is_idr else self._poc + 1
+        self._ref = (ry, ru, rv)
+        return {"kind": "idr" if is_idr else "p", "out": out, "qp": qp,
+                "first": first, "poc": self._poc, "recon": (ry, ru, rv)}
+
+    def encode_frame_entropy(self, ctx):
+        """Host stage: CABAC + NAL mux.  Returns (annexb_bytes, recon numpy)."""
+        cfg = self.cfg
+        out, qp = ctx["out"], ctx["qp"]
+
+        def host(name):
+            return out[name].cpu().numpy()
+
+        if ctx["kind"] == "idr":
+            payload = encode_slice_data_intra(
+                cfg, host("mode"), host("lev_y"), host("lev_cb"), host("lev_cr"),
+                slice_qp=qp)
+            sh = SliceHeader(slice_type=2, qp=qp, nal_type=NalType.IDR_W_RADL)
+        else:
+            merge_kw = {}
+            if cfg.merge_cand > 1:
+                merge_kw = dict(merge_idxs=host("merge_idx"), merge_k=cfg.merge_cand)
+            payload = encode_slice_data_p(
+                cfg, host("ctype"), host("intra_mode"), host("mv"), host("mvp_flag"),
+                host("mvd"), host("lev_y"), host("lev_cb"), host("lev_cr"),
+                slice_qp=qp, **merge_kw)
+            sh = SliceHeader(
+                slice_type=1, qp=qp, nal_type=NalType.TRAIL_R,
+                pic_order_cnt_lsb=ctx["poc"] % (1 << cfg.log2_max_poc_lsb),
+                num_negative_pics=1, delta_pocs=(-1,),
+                max_num_merge_cand=cfg.merge_cand)
+        w = compose_slice_header(cfg, sh, None)
+        w.write_bytes(payload)
+        stream = self.headers() if ctx["first"] else b""
+        stream += compose_nal(NalUnit(sh.nal_type, w.data()))
+        return stream, tuple(p.cpu().numpy() for p in crop_display(cfg, *ctx["recon"]))

@@ -1,0 +1,147 @@
+"""The PyTorch port's default low-delay encode against the JAX Encoder.
+
+96x64, `synthetic_frames(96, 64, 4, seed=12)`, IDR + 3 P at QP 30 with the
+CLI's defaults (CTB16, deblocking on): the port's Annex-B stream must be
+byte-identical to the JAX `Encoder`'s, for merge 1 and merge 5; the JAX
+`Decoder` must decode it to the port's reconstruction; the encoder state
+must carry over from JAX to the port; and the port must not import JAX.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from kvazzup_tpu.core.params import StreamConfig
+from kvazzup_tpu.decoder.top import Decoder
+from kvazzup_tpu.encoder.top import Encoder as JaxEncoder
+from kvazzup_tpu.io.yuv import synthetic_frames, write_yuv420
+
+from kvazzup_tpu_torch.encoder.top import Encoder
+from kvazzup_tpu_torch.ops import hopper_q
+
+W, H, QP, NF = 96, 64, 30, 4
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _cfg(merge=1, **kw):
+    return StreamConfig.for_source(W, H, qp=QP, merge_cand=merge, **kw)
+
+
+def _encode(enc, frames):
+    out = [enc.encode_frame(y, u, v) for (y, u, v) in frames]
+    return [s for s, _ in out], [r for _, r in out]
+
+
+@pytest.fixture(scope="module")
+def frames():
+    return synthetic_frames(W, H, NF, seed=12)
+
+
+@pytest.fixture(scope="module")
+def runs(frames):
+    """{merge: (jax_streams, jax_recons, port_streams, port_recons)}"""
+    res = {}
+    for merge in (1, 5):
+        js, jr = _encode(JaxEncoder(_cfg(merge), intra_period=64), frames)
+        ts, tr = _encode(Encoder(_cfg(merge), intra_period=64, device="cpu"), frames)
+        res[merge] = (js, jr, ts, tr)
+    return res
+
+
+@pytest.mark.parametrize("merge", [1, 5])
+def test_stream_byte_identical(runs, merge):
+    js, jr, ts, tr = runs[merge]
+    assert [len(s) for s in ts] == [len(s) for s in js]
+    for i, (a, b) in enumerate(zip(js, ts)):
+        assert a == b, f"frame {i} differs"
+    for i, (a, b) in enumerate(zip(jr, tr)):
+        for pa, pb in zip(a, b):
+            np.testing.assert_array_equal(np.asarray(pa), pb, err_msg=f"recon frame {i}")
+
+
+@pytest.mark.parametrize("merge", [1, 5])
+def test_jax_decoder_reproduces_port_recon(runs, merge):
+    _, _, ts, tr = runs[merge]
+    decoded = Decoder().decode(b"".join(ts))
+    assert len(decoded) == NF
+    for rec, dec in zip(tr, decoded):
+        for a, b in zip(rec, dec):
+            np.testing.assert_array_equal(a, np.asarray(b))
+
+
+def test_snapshot_restore_from_jax(runs, frames):
+    """JAX encodes frames 0..1, the port resumes from its snapshot."""
+    js = runs[1][0]
+    jenc = JaxEncoder(_cfg(), intra_period=64)
+    for (y, u, v) in frames[:2]:
+        jenc.encode_frame(y, u, v)
+    enc = Encoder(_cfg(), intra_period=64, device="cpu")
+    enc.restore(jenc.snapshot(), "cpu")
+    got = [enc.encode_frame(y, u, v)[0] for (y, u, v) in frames[2:]]
+    assert got == js[2:]
+    # and the port's own snapshot round-trips
+    enc2 = Encoder(_cfg(), intra_period=64, device="cpu")
+    enc2.restore(enc.snapshot())
+    assert enc2.snapshot()["frame_count"] == NF
+
+
+def test_cpu_encode_launches_no_kernel(frames):
+    hopper_q.reset_launches()
+    Encoder(_cfg(), intra_period=64, device="cpu").encode_frame(*frames[0])
+    assert hopper_q.LAUNCHES == {"quant": 0, "dequant": 0, "satd": 0}
+
+
+@pytest.mark.parametrize("kw", [dict(sao_enabled=True, wpp=True), dict(wpp=True),
+                                dict(ctb_log2=5, min_cb_log2=3, max_tb_log2=5),
+                                dict(rdoq=True), dict(temporal_mvp=True),
+                                dict(fast_decision=False)])
+def test_unported_configs_raise(kw):
+    with pytest.raises(NotImplementedError):
+        Encoder(_cfg(**kw), intra_period=64, device="cpu")
+
+
+def test_cli_encode_matches_encoder(frames, tmp_path, runs):
+    from kvazzup_tpu_torch.cli import main
+
+    src = tmp_path / "in.yuv"
+    write_yuv420(str(src), frames[:2])
+    out = tmp_path / "out.265"
+    assert main(["encode", str(src), str(out), "--size", f"{W}x{H}", "--qp", str(QP),
+                 "--device", "cpu"]) == 0
+    assert out.read_bytes() == b"".join(runs[1][0][:2])
+    with pytest.raises(NotImplementedError):
+        main(["encode", str(src), str(out), "--size", f"{W}x{H}", "--sao", "--device", "cpu"])
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import kvazzup_tpu_torch, kvazzup_tpu_torch.cli, kvazzup_tpu_torch.runtime\n"
+        "import kvazzup_tpu_torch.encoder.top, kvazzup_tpu_torch.encoder.frame_intra\n"
+        "import kvazzup_tpu_torch.encoder.frame_inter, kvazzup_tpu_torch.ops.hopper_q\n"
+        "import kvazzup_tpu_torch.ops.me, kvazzup_tpu_torch.ops.deblock\n"
+        "import kvazzup_tpu_torch.ops.costs, kvazzup_tpu_torch.ops.satd\n"
+        "import kvazzup_tpu_torch.inputs\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       cwd=REPO, env=env, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py reaches the encoder, its inputs and the kernels through
+    kvazzup_tpu_torch alone, never through JAX or the JAX package."""
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    ours = [m for m in names if m.split(".")[0] in ("jax", "kvazzup_tpu", "kvazzup_tpu_torch")]
+    assert ours and all(m.split(".")[0] == "kvazzup_tpu_torch" for m in ours), ours

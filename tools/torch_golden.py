@@ -1,0 +1,93 @@
+"""Write the JAX reference's stream digests for the PyTorch port's chip check.
+
+Encodes `kvazzup_tpu.io.yuv.synthetic_frames(W, H, N, seed)` with the JAX
+`Encoder` at the CLI's default low-delay configuration (CTB16, deblocking
+on, merge 1, intra period 64) and records, per frame, the SHA-256 and byte
+length of the Annex-B output plus a SHA-256 of the reconstruction.
+`chip_smoke.py` encodes the same frames with `kvazzup_tpu_torch` on the GPU
+and compares against this file.
+
+Runs on the CPU (JAX only; the port's package is not imported):
+
+    python tools/torch_golden.py            # 1920x1080, 4 frames, QP 32
+    python tools/torch_golden.py --width 96 --height 64 --out /tmp/g.json
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import cpu_env  # noqa: E402,F401  (selects the JAX CPU backend)
+
+import numpy as np  # noqa: E402
+
+from kvazzup_tpu.core.params import StreamConfig  # noqa: E402
+from kvazzup_tpu.encoder.top import Encoder  # noqa: E402
+from kvazzup_tpu.io.yuv import synthetic_frames  # noqa: E402
+
+DEFAULT_OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "kvazzup_tpu_torch", "golden", "ld_1080p_q32.json")
+
+
+def recon_digest(planes) -> str:
+    h = hashlib.sha256()
+    for p in planes:
+        h.update(np.ascontiguousarray(np.asarray(p, np.uint8)).tobytes())
+    return h.hexdigest()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--frames", type=int, default=4)
+    ap.add_argument("--qp", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=12)
+    ap.add_argument("--merge", type=int, default=1)
+    ap.add_argument("--intra-period", type=int, default=64)
+    ap.add_argument("--out", default=DEFAULT_OUT)
+    args = ap.parse_args(argv)
+
+    cfg = StreamConfig.for_source(args.width, args.height, qp=args.qp,
+                                  merge_cand=args.merge)
+    enc = Encoder(cfg, intra_period=args.intra_period)
+    frames = synthetic_frames(args.width, args.height, args.frames, seed=args.seed)
+    out = []
+    for i, (y, u, v) in enumerate(frames):
+        t0 = time.time()
+        stream, recon = enc.encode_frame(y, u, v)
+        out.append({"frame": i, "bytes": len(stream),
+                    "sha256": hashlib.sha256(stream).hexdigest(),
+                    "recon_sha256": recon_digest(recon)})
+        print(f"frame {i}: {len(stream)} bytes ({time.time() - t0:.1f}s)",
+              flush=True)
+    doc = {
+        "source": "kvazzup_tpu.encoder.top.Encoder (JAX, CPU backend)",
+        "frames_from": "kvazzup_tpu.io.yuv.synthetic_frames",
+        "width": args.width, "height": args.height, "n_frames": args.frames,
+        "seed": args.seed, "qp": args.qp, "merge_cand": args.merge,
+        "intra_period": args.intra_period,
+        "config": {"ctb_log2": cfg.ctb_log2, "coded_width": cfg.width,
+                   "coded_height": cfg.height, "deblocking": cfg.deblocking_enabled,
+                   "sao": cfg.sao_enabled, "wpp": cfg.wpp, "rdoq": cfg.rdoq,
+                   "tmvp": cfg.temporal_mvp, "fast_decision": cfg.fast_decision},
+        "frames": out,
+    }
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(doc, f, indent=1)
+        f.write("\n")
+    print(f"wrote {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

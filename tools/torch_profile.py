@@ -1,0 +1,120 @@
+"""Where the time goes in the PyTorch port's 1080p low-delay encode (GPU).
+
+    python tools/torch_profile.py [--width 1920 --height 1080 --qp 32]
+
+Warms up on a throwaway encoder (IDR + P), then for one IDR and one P
+frame of `synthetic_frames(W, H, 3, seed=12)`:
+  * times each stage with the host clock around work that ends in
+    torch.cuda.synchronize() (prepasses, the wave loop, deblocking);
+  * profiles the whole device stage with torch.profiler and reports the
+    kernel count, summed kernel time, device busy share of the wall time
+    and the top kernels by device time.
+Needs a CUDA device; prints one JSON line last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from kvazzup_tpu_torch import runtime  # noqa: E402
+from kvazzup_tpu_torch.encoder import frame_inter, frame_intra  # noqa: E402
+from kvazzup_tpu_torch.encoder.top import Encoder, pad_to_coded  # noqa: E402
+from kvazzup_tpu_torch.inputs import stream_config, synthetic_frames  # noqa: E402
+from kvazzup_tpu_torch.ops import mc  # noqa: E402
+from kvazzup_tpu_torch.ops.deblock import deblock_frame  # noqa: E402
+from kvazzup_tpu_torch.ops.me import motion_search  # noqa: E402
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def device_profile(fn):
+    """(wall ms, device event count, summed device ms, top events) of fn();
+    device events are kernels and copies."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name: dict = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return wall, len(kernels), busy, [(k[:70], n, round(t, 3)) for k, (n, t) in top]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--qp", type=int, default=32)
+    args = ap.parse_args(argv)
+    dev = runtime.require_cuda()
+    cfg = stream_config(args.width, args.height, qp=args.qp)
+    w, h, qp = cfg.width, cfg.height, cfg.qp
+    raw = synthetic_frames(args.width, args.height, 3, seed=12)
+    warm = Encoder(cfg, intra_period=64, device=dev)
+    ref = warm.encode_frame_device(*raw[0])["recon"]
+    warm.encode_frame_device(*raw[1])
+    y, u, v = (torch.as_tensor(p, device=dev) for p in pad_to_coded(cfg, *raw[2]))
+    nctu = cfg.ctbs_w * cfg.ctbs_h
+    qp_rows, _, lam_rows, oy, _, _ = frame_intra.frame_setup(y, u, v, qp, nctu)
+
+    stages = {}
+    _, stages["idr_mode_prepass"] = timed(lambda: frame_intra.intra_mode_prepass(
+        y, oy, qp_rows, lam_rows, width=w, height=h))
+    out_i, stages["idr_total"] = timed(lambda: frame_intra.encode_frame_intra_fast(
+        y, u, v, qp, width=w, height=h))
+    stages["idr_wave_loop"] = stages["idr_total"] - stages["idr_mode_prepass"]
+    _, stages["deblock_idr"] = timed(lambda: deblock_frame(
+        out_i["recon_y"], out_i["recon_u"], out_i["recon_v"], qp))
+    lam_x1k = int(frame_intra.LAMBDA_X1K[qp])
+    _, stages["p_motion_search"] = timed(lambda: motion_search(
+        y, ref[0], lam_x1k, width=w, height=h))
+    _, stages["p_intra_cost_prepass"] = timed(lambda: frame_intra.intra_cost_prepass(
+        y, oy, lam_rows, width=w, height=h))
+    _, stages["p_ref_windows"] = timed(lambda: [
+        mc.sheared_ref_strips(mc.edge_pad(p, pad), n, 16, cfg.ctbs_h, pad, chroma=n == 8)
+        for p, n, pad in ((ref[0], 16, 24), (ref[1], 8, 12), (ref[2], 8, 12))])
+    _, stages["p_total"] = timed(lambda: frame_inter.encode_frame_p_fast(
+        y, u, v, *ref, qp, width=w, height=h))
+    stages["p_wave_loop_and_rest"] = (stages["p_total"] - stages["p_motion_search"]
+                                      - stages["p_intra_cost_prepass"] - stages["p_ref_windows"])
+    for k, t in stages.items():
+        print(f"{k:24s} {t:10.3f} ms", flush=True)
+
+    enc = Encoder(cfg, intra_period=64, device=dev)
+    prof = {}
+    for kind, f in (("idr", raw[0]), ("p", raw[1])):
+        wall, n, busy, top = device_profile(lambda f=f: enc.encode_frame_device(*f))
+        prof[kind] = {"wall_ms": wall, "kernels": n, "kernel_ms": busy,
+                      "busy_share": busy / wall, "top": top}
+        print(f"{kind}: wall {wall:.1f} ms, {n} kernels, kernel time {busy:.1f} ms, "
+              f"busy {100 * busy / wall:.1f}%", flush=True)
+        for name, cnt, t in top:
+            print(f"   {t:9.3f} ms {cnt:7d}x  {name}", flush=True)
+    print(json.dumps({"card": torch.cuda.get_device_name(0), "stages_ms": stages,
+                      "profile": prof}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
