@@ -3,16 +3,23 @@
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
-  1. the card's name and power limit (nvidia-smi), then the CUDA kernel build;
-  2. each hand kernel (SATD, quant, dequant) against its plain PyTorch
-     version on the card at the 1080p main-path shapes, element-identical
-     (tolerance 0), plus first-index tie-breaking of argmin / stable sort;
-  3. a 1920x1080 IDR + 3 P encode of synthetic_frames(1920, 1080, 4,
-     seed=12) at QP 32 with the CLI defaults through `Encoder` on cuda:
-     per-frame bytes, stream SHA-256 and recon SHA-256 against the JAX golden
-     (kvazzup_tpu_torch/golden/ld_1080p_q32.json), per-frame device and
-     entropy times, and the launch count of every kernel (all must be > 0);
-  4. kernel vs plain times at the main-path shapes (CUDA events).
+  1. the card's name and power limit (nvidia-smi), then the CUDA kernel build
+     (one nvcc per source, in parallel);
+  2. each hand kernel (SATD, quant, dequant, SAO apply) against its plain
+     PyTorch version on the card at the 1080p main-path shapes,
+     element-identical (tolerance 0), plus first-index tie-breaking of
+     argmin / stable sort;
+  3. two 1920x1080 IDR + 3 P encodes of synthetic_frames(1920, 1080, 4,
+     seed=12) at QP 32 through `Encoder` on cuda: the CLI defaults, then
+     `--sao` (SAO + WPP).  Each is held against its JAX golden
+     (kvazzup_tpu_torch/golden/ld_1080p_q32.json, ld_sao_1080p_q32.json):
+     per-frame bytes, stream SHA-256 and recon SHA-256; each prints its
+     per-frame device and entropy times and the launch count of every
+     kernel, counted from 0 over that encode alone (every kernel the path
+     runs must launch; SAO at least 3 times a frame);
+  4. kernel vs plain times at the main-path shapes (CUDA events), beside
+     each kernel's bound (bytes moved over 3.35 TB/s, operations over 67
+     Tops/s, the larger).
 The next-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -33,15 +40,28 @@ import torch
 from kvazzup_tpu_torch import runtime
 from kvazzup_tpu_torch.encoder.top import Encoder
 from kvazzup_tpu_torch.inputs import stream_config, synthetic_frames
-from kvazzup_tpu_torch.ops import hopper_q
+from kvazzup_tpu_torch.ops import hopper_q, sao
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(ROOT, "kvazzup_tpu_torch", "golden", "ld_1080p_q32.json")
-SOURCE = "kvazzup_tpu_torch/csrc/q_kernels.cu"
+GOLDEN_DIR = os.path.join(ROOT, "kvazzup_tpu_torch", "golden")
+PATHS = (("low-delay", "ld_1080p_q32.json"), ("low-delay --sao", "ld_sao_1080p_q32.json"))
+SOURCE = {"satd": "kvazzup_tpu_torch/csrc/q_kernels.cu",
+          "quant": "kvazzup_tpu_torch/csrc/q_kernels.cu",
+          "dequant": "kvazzup_tpu_torch/csrc/q_kernels.cu",
+          "sao": "kvazzup_tpu_torch/csrc/sao_kernels.cu"}
 REPLACES = {"satd": "kvazzup_tpu/ops/pallas_q.py:85",
             "quant": "kvazzup_tpu/ops/pallas_q.py:56",
-            "dequant": "kvazzup_tpu/ops/pallas_q.py:70"}
+            "dequant": "kvazzup_tpu/ops/pallas_q.py:70",
+            "sao": "kvazzup_tpu/ops/sao.py:185"}
+KERNELS = tuple(REPLACES)
 NCTU, LANES = 8160, 68  # 1920x1088 at CTB16: 120 x 68 CTUs, 68 lanes per wave
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+# integer and float32 arithmetic outside the tensor cores: the card's float32
+# peak; its int32 rate is no higher, so the time bound stays a lower bound
+OPS_PER_S = 67e12
+# arithmetic operations per element of the first operand (per output sample
+# for SAO), counted from each kernel's source
+OPS_PER_ELEM = {"satd": 9, "quant": 7, "dequant": 5, "sao": 12}
 
 
 def log(msg: str) -> None:
@@ -67,8 +87,18 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def launches() -> dict:
+    return {**hopper_q.LAUNCHES, **sao.LAUNCHES}
+
+
+def reset_launches() -> None:
+    hopper_q.reset_launches()
+    sao.reset_launches()
+
+
 def kernel_cases(dev):
-    """(kernel, label, kernel_fn, plain_fn) at the 1080p main-path shapes."""
+    """(kernel, label, kernel_fn, plain_fn, operands) at the 1080p main-path
+    shapes; the operands are the inputs the kernel reads."""
     rng = np.random.default_rng(2026)
 
     def t(a):
@@ -86,14 +116,14 @@ def kernel_cases(dev):
     pix = lambda *s: t(rng.integers(0, 256, s).astype(np.int32))  # noqa: E731
     a, b = pix(NCTU, 256), pix(NCTU, 256)
     cases.append(("satd", "ME (8160,256)", lambda a=a, b=b: hopper_q.satd_rows(a, b, 4),
-                  lambda a=a, b=b: hopper_q.satd_rows_plain(a, b, 4)))
+                  lambda a=a, b=b: hopper_q.satd_rows_plain(a, b, 4), (a, b)))
     a35, o = pix(NCTU * 35, 256), pix(NCTU, 256)
     cases.append(("satd", "prepass (8160*35,256) bcast",
                   lambda: hopper_q.satd_rows(a35, o, 4, group=35),
-                  lambda: hopper_q.satd_rows_plain(a35, o, 4, group=35)))
+                  lambda: hopper_q.satd_rows_plain(a35, o, 4, group=35), (a35, o)))
     aw, bw = pix(LANES, 256), pix(LANES, 256)
     cases.append(("satd", "wave (68,256)", lambda: hopper_q.satd_rows(aw, bw, 4),
-                  lambda: hopper_q.satd_rows_plain(aw, bw, 4)))
+                  lambda: hopper_q.satd_rows_plain(aw, bw, 4), (aw, bw)))
     for rows, k, log2, label in ((NCTU * 3, 256, 4, "prepass (8160*3,256)"),
                                  (LANES, 256, 4, "wave luma (68,256)"),
                                  (LANES, 64, 3, "wave chroma (68,64)")):
@@ -102,17 +132,50 @@ def kernel_cases(dev):
         qp, dz = qrows(rows), dzrows(rows)
         cases.append(("quant", label,
                       lambda c=c, qp=qp, dz=dz, l=log2: hopper_q.quantize_rows(c, qp, dz, l),
-                      lambda c=c, qp=qp, dz=dz, l=log2: hopper_q.quantize_rows_plain(c, qp, dz, l)))
+                      lambda c=c, qp=qp, dz=dz, l=log2: hopper_q.quantize_rows_plain(c, qp, dz, l),
+                      (c, qp, dz)))
         cases.append(("dequant", label,
                       lambda lv=lv, qp=qp, l=log2: hopper_q.dequantize_rows(lv, qp, l),
-                      lambda lv=lv, qp=qp, l=log2: hopper_q.dequantize_rows_plain(lv, qp, l)))
+                      lambda lv=lv, qp=qp, l=log2: hopper_q.dequantize_rows_plain(lv, qp, l),
+                      (lv, qp)))
+    # SAO apply: luma 1088x1920 at ctb 16, chroma 544x960 at ctb 8; random
+    # parameters covering off, band offset and all four edge classes
+    for h, w, ctb, label in ((1088, 1920, 16, "luma (1088,1920) ctb16"),
+                             (544, 960, 8, "chroma (544,960) ctb8")):
+        cbh, cbw = h // ctb, w // ctb
+        rec = t(rng.integers(0, 256, (h, w)).astype(np.uint8))
+        typ_np = rng.integers(0, 3, (cbh, cbw)).astype(np.int32)
+        aux_np = np.where(typ_np == 2, rng.integers(0, 4, (cbh, cbw)),
+                          rng.integers(0, 29, (cbh, cbw))).astype(np.int32)
+        for v in range(3):
+            assert (typ_np == v).any(), "SAO case misses a type"
+        for k in range(4):
+            assert ((typ_np == 2) & (aux_np == k)).any(), "SAO case misses an edge class"
+        typ, aux = t(typ_np), t(aux_np)
+        offs = t(rng.integers(-7, 8, (cbh, cbw, 4)).astype(np.int32))
+        cases.append(("sao", label,
+                      lambda r=rec, a=typ, b=aux, o=offs, c=ctb: sao.sao_apply(r, a, b, o, ctb=c),
+                      lambda r=rec, a=typ, b=aux, o=offs, c=ctb: sao.sao_apply_plain(
+                          r, a, b, o, ctb=c),
+                      (rec, typ, aux, offs)))
     return cases
+
+
+def bound(name, operands, out) -> tuple[float, str]:
+    """The least time the card could take for one call: each operand read
+    once and the output written once over the memory rate, against the
+    arithmetic over the peak rate; returns (ms, what bounds it)."""
+    nbytes = sum(x.numel() * x.element_size() for x in operands)
+    nbytes += out.numel() * out.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = OPS_PER_ELEM[name] * operands[0].numel() / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_kernels(cases) -> dict:
     """Kernel == plain on every case; returns max abs error per kernel."""
     err = {}
-    for name, label, kfn, pfn in cases:
+    for name, label, kfn, pfn, _ in cases:
         got, want = kfn(), pfn()
         torch.cuda.synchronize()
         if got.shape != want.shape or got.dtype != want.dtype:
@@ -141,18 +204,27 @@ def check_ties(dev) -> None:
 
 
 def encode_1080p(dev, golden) -> tuple[list, dict]:
+    """Encode the golden's frames with its configuration and hold every
+    frame against it; returns the per-frame rows and the kernel launches
+    of the measured encode alone."""
     w, h, nf = golden["width"], golden["height"], golden["n_frames"]
-    cfg = stream_config(w, h, qp=golden["qp"], merge=golden["merge_cand"])
+    with_sao = golden["config"]["sao"]
+    cfg = stream_config(w, h, qp=golden["qp"], merge=golden["merge_cand"], sao=with_sao)
+    if (cfg.sao_enabled, cfg.wpp) != (with_sao, golden["config"]["wpp"]):
+        raise AssertionError(f"configuration differs from the golden's: {golden['config']}")
     frames = synthetic_frames(w, h, nf, seed=golden["seed"])
     # warm-up on a throwaway encoder (one IDR and one P): cuBLAS handles,
-    # allocator pools, constant tables
+    # allocator pools, constant tables; the first path also builds the
+    # native CABAC library, the SAO path warms only its device stage
     warm = Encoder(cfg, intra_period=golden["intra_period"], device=dev)
     for (y, u, v) in frames[:2]:
-        warm.encode_frame(y, u, v)
+        ctx = warm.encode_frame_device(y, u, v)
+        if not with_sao:
+            warm.encode_frame_entropy(ctx)
     torch.cuda.synchronize()
 
     enc = Encoder(cfg, intra_period=golden["intra_period"], device=dev)
-    hopper_q.reset_launches()
+    reset_launches()
     rows = []
     for i, (y, u, v) in enumerate(frames):
         t0 = time.perf_counter()
@@ -167,25 +239,29 @@ def encode_1080p(dev, golden) -> tuple[list, dict]:
                          np.ascontiguousarray(p).tobytes() for p in recon)).hexdigest(),
                      "device_ms": (t1 - t0) * 1e3, "entropy_ms": (t2 - t1) * 1e3,
                      "recon_shape": [list(p.shape) for p in recon]})
-    launches = dict(hopper_q.LAUNCHES)
+    counts = launches()
     for r, g in zip(rows, golden["frames"]):
         match = r["sha256"] == g["sha256"] and r["bytes"] == g["bytes"]
         log(f"  frame {r['frame']} ({r['kind']}): {r['bytes']} bytes "
             f"(golden {g['bytes']}) sha256 {'match' if match else 'MISMATCH'}; "
             f"recon {'match' if r['recon_sha256'] == g['recon_sha256'] else 'MISMATCH'}; "
             f"device {r['device_ms']:.1f} ms, entropy {r['entropy_ms']:.1f} ms")
-    log(f"  kernel launches during the encode: {launches}")
+    log(f"  kernel launches during the encode: {counts}")
     bad = [r["frame"] for r, g in zip(rows, golden["frames"])
            if r["sha256"] != g["sha256"] or r["bytes"] != g["bytes"]
            or r["recon_sha256"] != g["recon_sha256"]]
-    if bad:
+    if len(rows) != len(golden["frames"]) or bad:
         raise AssertionError(f"1080p stream or recon differs from the JAX golden in frames {bad}")
     if rows[0]["recon_shape"] != [[h, w], [h // 2, w // 2], [h // 2, w // 2]]:
         raise AssertionError(f"unexpected recon shape {rows[0]['recon_shape']}")
-    zero = [k for k, v in launches.items() if v <= 0]
+    path_kernels = ("satd", "quant", "dequant") + (("sao",) if with_sao else ())
+    zero = [k for k in path_kernels if counts[k] <= 0]
     if zero:
         raise AssertionError(f"kernels never launched on the main path: {zero}")
-    return rows, launches
+    if with_sao and counts["sao"] < 3 * nf:
+        raise AssertionError(f"SAO launched {counts['sao']} times in {nf} frames, "
+                             f"expected 3 a frame")
+    return rows, counts
 
 
 def main() -> int:
@@ -208,23 +284,32 @@ def main() -> int:
     errs = check_kernels(cases)
     check_ties(dev)
 
-    log("phase 3: 1080p IDR+3P encode on cuda vs JAX golden")
-    with open(GOLDEN) as f:
-        golden = json.load(f)
-    rows, launches = encode_1080p(dev, golden)
+    frames, total = {}, dict.fromkeys(KERNELS, 0)
+    for label, name in PATHS:
+        log(f"phase 3: 1080p IDR+3P {label} encode on cuda vs JAX golden {name}")
+        with open(os.path.join(GOLDEN_DIR, name)) as f:
+            golden = json.load(f)
+        rows, counts = encode_1080p(dev, golden)
+        frames[label] = [{k: r[k] for k in ("frame", "kind", "bytes", "device_ms",
+                                             "entropy_ms")} for r in rows]
+        for k in KERNELS:
+            total[k] += counts[k]
 
     log("phase 4: kernel vs plain times (CUDA events, mean of 20 after warm-up)")
     times = {}
-    for name, label, kfn, pfn in cases:
+    for name, label, kfn, pfn, operands in cases:
         km, pm = cuda_ms(kfn), cuda_ms(pfn)
-        log(f"  {name:8s} {label:30s} kernel {km:.4f} ms  plain {pm:.4f} ms")
-        times.setdefault(name, (label, km, pm))  # first case = the largest shape
-    kernels = [{"name": n, "route": "cuda", "source": SOURCE, "replaces": REPLACES[n],
-                "launches": launches[n], "max_abs_err": errs[n], "ms": times[n][1],
-                "plain_ms": times[n][2]}
-               for n in ("satd", "quant", "dequant")]
-    log(json.dumps({"frames": [{k: r[k] for k in ("frame", "kind", "bytes", "device_ms",
-                                                   "entropy_ms")} for r in rows]}))
+        bms, by = bound(name, operands, kfn())
+        log(f"  {name:8s} {label:30s} kernel {km:.4f} ms  plain {pm:.4f} ms  "
+            f"bound {bms:.4f} ms ({by})")
+        times.setdefault(name, (km, pm, bms, by))  # first case = the largest shape
+    kernels = [{"name": n, "route": "cuda", "source": SOURCE[n], "replaces": REPLACES[n],
+                "launches": total[n], "max_abs_err": errs[n], "ms": times[n][0],
+                "plain_ms": times[n][1], "bound_ms": times[n][2], "bound_by": times[n][3],
+                "library_ms": None}
+               for n in KERNELS]
+    log(json.dumps({"frames": frames}))
+    print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,11 +3,14 @@ hand-written CUDA kernels for NVIDIA Hopper.
 
 The JAX package `kvazzup_tpu` is the reference: every module here mirrors
 one of its `ops/` or `encoder/` modules and is held element-identical (ops)
-or byte-identical (streams) against it.  Framework-free modules (core
-tables and parameter sets, the native CABAC writer, the wavefront schedule,
-YUV I/O) are imported from `kvazzup_tpu` rather than copied.
+or byte-identical (streams) against it.  The port imports nothing of
+`kvazzup_tpu`: the framework-free modules it needs (core tables and
+parameter sets in `core/`, the CABAC writer and its native C library in
+`entropy/` and `native/`, the wavefront schedule, YUV I/O in `io/`) are
+copies of the JAX package's, at the same relative paths.
 
-Scope: the CLI's default low-delay encode (CTB16, IDR + P, deblocking).
+Scope: the CLI's low-delay encode at CTB16 (IDR + P, deblocking), with or
+without SAO + WPP (`--sao`, `--wpp`).
 """
 
 from . import runtime  # noqa: F401  (fixes the float32 matmul precision)

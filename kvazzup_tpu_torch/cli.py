@@ -3,7 +3,9 @@
 
     python -m kvazzup_tpu_torch encode in.y4m out.265 [--qp 32] [--frames N]
         [--size WxH] [--intra-period 64] [--merge 1..5] [--no-deblock]
-        [--device cuda|cpu]
+        [--sao] [--wpp] [--device cuda|cpu]
+
+`--sao` turns WPP on as well (the JAX CLI's rule at CTB16 without tiles).
 
 Flags of the JAX CLI that select other configurations are accepted only at
 their default value; anything else raises NotImplementedError.
@@ -16,7 +18,7 @@ import sys
 import time
 
 # flag -> default value; any other value selects an unported path
-_UNPORTED = {"sao": False, "wpp": False, "tiles": 1, "slices": 1, "ctu": 16,
+_UNPORTED = {"tiles": 1, "slices": 1, "ctu": 16,
              "tu_intra_depth": 1, "cu8": False, "rdoq": False, "tmvp": False,
              "bitdepth": 8, "gop": "ld", "bitrate": 0}
 
@@ -44,7 +46,8 @@ def cmd_encode(args) -> int:
     frames, w, h = _read_input(args.input, args.size, args.frames)
     if not frames:
         raise SystemExit("no frames read")
-    cfg = stream_config(w, h, qp=args.qp, deblock=not args.no_deblock, merge=args.merge)
+    cfg = stream_config(w, h, qp=args.qp, deblock=not args.no_deblock, merge=args.merge,
+                        sao=args.sao, wpp=args.wpp)
     enc = Encoder(cfg, intra_period=args.intra_period, device=args.device)
     t0 = time.time()
     total_psnr = 0.0
@@ -74,11 +77,11 @@ def main(argv=None) -> int:
     pe.add_argument("--intra-period", type=int, default=64)
     pe.add_argument("--merge", type=int, choices=(1, 2, 3, 4, 5), default=1)
     pe.add_argument("--no-deblock", action="store_true")
+    pe.add_argument("--sao", action="store_true", help="sample adaptive offset (and WPP)")
+    pe.add_argument("--wpp", action="store_true", help="wavefront parallel entry points")
     pe.add_argument("--device", default="cuda", help="torch device (default cuda)")
     # JAX-CLI flags whose non-default values select unported paths
     pe.add_argument("--bitrate", type=int, default=0)
-    pe.add_argument("--sao", action="store_true")
-    pe.add_argument("--wpp", action="store_true")
     pe.add_argument("--tiles", type=int, default=1)
     pe.add_argument("--slices", type=int, default=1)
     pe.add_argument("--ctu", type=int, choices=(16, 32, 64), default=16)

@@ -16,8 +16,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kvazzup_tpu.encoder.wavefront import schedule_r
-
 from ..ops import ctu_kernels as ck
 from ..ops import intra as intra_ops
 from ..ops.costs import bits_of, fma
@@ -28,6 +26,7 @@ from ..ops.quant import dequantize, quantize
 from .frame_intra import (LAMBDA_X1K, N, P_PREPASS_MODES, _shift_lanes, from_blocks,
                           frame_setup, intra_cost_prepass, ring0, ring_boundary,
                           ring_push, wave_flags, wave_inputs, wave_to_raster)
+from .wavefront import schedule_r
 
 CT_INTRA, CT_MERGE, CT_AMVP, CT_SKIP = 0, 1, 2, 3
 SEARCH_RANGE = 16

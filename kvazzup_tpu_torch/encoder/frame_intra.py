@@ -5,7 +5,7 @@ path only).
 `intra_mode_prepass` decides every CTU's intra mode at once from
 original-pixel neighbour boundaries (35-mode SATD sweep, MPM bit cost, true
 RD over the top 3).  `encode_frame_intra_fast` then walks the row-aligned
-wavefront (`kvazzup_tpu.encoder.wavefront.schedule_r`: wave d holds CTU
+wavefront (`wavefront.schedule_r`: wave d holds CTU
 (r, d - 2r) in lane r) and reconstructs: predict the chosen mode from the
 reconstructed boundary samples of the previous three waves (the "ring"),
 transform, quantize, dequantize, inverse transform.
@@ -16,14 +16,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kvazzup_tpu.core.tables import CHROMA_QP_TABLE
-from kvazzup_tpu.encoder.wavefront import schedule_r
-
+from ..core.tables import CHROMA_QP_TABLE
 from ..ops import ctu_kernels as ck
 from ..ops import intra as intra_ops
 from ..ops.costs import bits_row_sum, fma
 from ..ops.quant import dequantize, quantize
 from ..runtime import device_const
+from .wavefront import schedule_r
 
 N = 16
 

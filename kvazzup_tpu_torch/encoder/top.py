@@ -2,9 +2,12 @@
 kvazzup_tpu/encoder/top.py, CTB16 low-delay branch).
 
 Per frame: device encode (IDR: `encode_frame_intra_fast`, P:
-`encode_frame_p_fast`) -> deblocking -> the reference picture advances ->
-host CABAC (the JAX package's native C writer, numpy in and out) -> NAL
-mux.  Configurations outside that branch raise NotImplementedError.
+`encode_frame_p_fast`) -> deblocking -> SAO decision and application
+(`--sao`; both read the original frame) -> the reference picture advances
+-> host CABAC (`entropy.slice_data`: the native C writer, or its Python
+tier where SAO parameters precede each CTU's syntax; numpy in and out) ->
+NAL mux, with WPP entry points when `cfg.wpp`.  Configurations outside
+that branch raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -12,13 +15,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kvazzup_tpu.core.nal import NalType, NalUnit, compose_nal
-from kvazzup_tpu.core.params import (SliceHeader, StreamConfig, compose_pps,
-                                     compose_slice_header, compose_sps, compose_vps)
-from kvazzup_tpu.entropy.slice_data import encode_slice_data_intra, encode_slice_data_p
-
 from .. import runtime
+from ..core.nal import NalType, NalUnit, compose_nal, ebsp_entry_offsets
+from ..core.params import (SliceHeader, StreamConfig, compose_pps, compose_slice_header,
+                           compose_sps, compose_vps)
+from ..entropy.slice_data import (SaoState, encode_slice_data_intra,
+                                  encode_slice_data_intra_wpp, encode_slice_data_p,
+                                  encode_slice_data_p_wpp)
 from ..ops.deblock import compute_bs, deblock_frame
+from ..ops.sao import sao_apply, sao_decide, sao_decide_chroma, sao_lambda
 from .frame_inter import encode_frame_p_fast
 from .frame_intra import encode_frame_intra_fast
 
@@ -47,8 +52,6 @@ def _check_supported(cfg: StreamConfig) -> None:
         "min_cb_log2 != 4": cfg.min_cb_log2 != 4,
         "max_transform_hierarchy_depth_intra": cfg.max_transform_hierarchy_depth_intra != 0,
         "bit_depth != 8": cfg.bit_depth != 8,
-        "sao": cfg.sao_enabled,
-        "wpp": cfg.wpp,
         "tiles": cfg.tile_cols != 1,
         "slices": cfg.slices != 1,
         "cu_qp_delta": cfg.cu_qp_delta,
@@ -61,6 +64,8 @@ def _check_supported(cfg: StreamConfig) -> None:
         raise NotImplementedError(
             "kvazzup_tpu_torch encodes the CTB16 low-delay path only; "
             f"unsupported here: {', '.join(bad)}")
+    if cfg.sao_enabled and not cfg.wpp:
+        raise NotImplementedError("SAO requires cfg.wpp at CTB16 (or the CTB32/64/tiles paths)")
     if not 1 <= cfg.merge_cand <= 5:
         raise ValueError("merge_cand must be in 1..5")
     if cfg.width % cfg.ctb_size or cfg.height % cfg.ctb_size:
@@ -137,12 +142,32 @@ class Encoder:
         if cfg.deblocking_enabled:
             ry, ru, rv = deblock_frame(ry, ru, rv, qp, spacing=cfg.ctb_size,
                                        bs_v=bs_v, bs_h=bs_h)
+        sao = None
+        if cfg.sao_enabled:
+            ry, ru, rv, sao = self._sao(y, u, v, ry, ru, rv, qp)
         first = self._frame_count == 0
         self._frame_count += 1
         self._poc = 0 if is_idr else self._poc + 1
         self._ref = (ry, ru, rv)
         return {"kind": "idr" if is_idr else "p", "out": out, "qp": qp,
-                "first": first, "poc": self._poc, "recon": (ry, ru, rv)}
+                "first": first, "poc": self._poc, "sao": sao, "recon": (ry, ru, rv)}
+
+    def _sao(self, y, u, v, ry, ru, rv, qp: int):
+        """SAO on the deblocked planes: luma decided at the CTB size, Cb and
+        Cr jointly at half of it (shared type and class).  Returns the
+        filtered planes and the parameters stacked [luma, Cb, Cr] as
+        (typ, aux, offs) tensors on the device."""
+        ctb = self.cfg.ctb_size
+        lam = sao_lambda(qp)
+        t_l, aux_l, off_l, _ = sao_decide(y, ry, lam, ctb=ctb)
+        t_c, _cls, aux_cb, aux_cr, off_cb, off_cr = sao_decide_chroma(
+            u, ru, v, rv, lam, ctb=ctb // 2)
+        params = (torch.stack([t_l, t_c, t_c]), torch.stack([aux_l, aux_cb, aux_cr]),
+                  torch.stack([off_l, off_cb, off_cr]))
+        ry = sao_apply(ry.contiguous(), t_l, aux_l, off_l, ctb=ctb)
+        ru = sao_apply(ru.contiguous(), t_c, aux_cb, off_cb, ctb=ctb // 2)
+        rv = sao_apply(rv.contiguous(), t_c, aux_cr, off_cr, ctb=ctb // 2)
+        return ry, ru, rv, params
 
     def encode_frame_entropy(self, ctx):
         """Host stage: CABAC + NAL mux.  Returns (annexb_bytes, recon numpy)."""
@@ -152,25 +177,40 @@ class Encoder:
         def host(name):
             return out[name].cpu().numpy()
 
+        sao_state = None
+        if ctx["sao"] is not None:
+            typ, aux, offs = (t.cpu().numpy() for t in ctx["sao"])
+            sao_state = SaoState(cfg.ctbs_w, cfg.ctbs_h, typ=typ, aux=aux, offs=offs)
+        entry_offsets = None
         if ctx["kind"] == "idr":
-            payload = encode_slice_data_intra(
-                cfg, host("mode"), host("lev_y"), host("lev_cb"), host("lev_cr"),
-                slice_qp=qp)
-            sh = SliceHeader(slice_type=2, qp=qp, nal_type=NalType.IDR_W_RADL)
+            arrays = (host("mode"), host("lev_y"), host("lev_cb"), host("lev_cr"))
+            if cfg.wpp:
+                payload, entry_offsets = encode_slice_data_intra_wpp(
+                    cfg, *arrays, sao=sao_state, slice_qp=qp)
+            else:
+                payload = encode_slice_data_intra(cfg, *arrays, slice_qp=qp)
+            sh = SliceHeader(slice_type=2, qp=qp, nal_type=NalType.IDR_W_RADL,
+                             sao_luma=cfg.sao_enabled, sao_chroma=cfg.sao_enabled)
         else:
             merge_kw = {}
             if cfg.merge_cand > 1:
                 merge_kw = dict(merge_idxs=host("merge_idx"), merge_k=cfg.merge_cand)
-            payload = encode_slice_data_p(
-                cfg, host("ctype"), host("intra_mode"), host("mv"), host("mvp_flag"),
-                host("mvd"), host("lev_y"), host("lev_cb"), host("lev_cr"),
-                slice_qp=qp, **merge_kw)
+            arrays = (host("ctype"), host("intra_mode"), host("mv"), host("mvp_flag"),
+                      host("mvd"), host("lev_y"), host("lev_cb"), host("lev_cr"))
+            if cfg.wpp:
+                payload, entry_offsets = encode_slice_data_p_wpp(
+                    cfg, *arrays, slice_qp=qp, sao=sao_state, **merge_kw)
+            else:
+                payload = encode_slice_data_p(cfg, *arrays, slice_qp=qp, **merge_kw)
             sh = SliceHeader(
                 slice_type=1, qp=qp, nal_type=NalType.TRAIL_R,
                 pic_order_cnt_lsb=ctx["poc"] % (1 << cfg.log2_max_poc_lsb),
                 num_negative_pics=1, delta_pocs=(-1,),
-                max_num_merge_cand=cfg.merge_cand)
-        w = compose_slice_header(cfg, sh, None)
+                max_num_merge_cand=cfg.merge_cand,
+                sao_luma=cfg.sao_enabled, sao_chroma=cfg.sao_enabled)
+        if entry_offsets:
+            entry_offsets = ebsp_entry_offsets(payload, entry_offsets)
+        w = compose_slice_header(cfg, sh, entry_offsets)
         w.write_bytes(payload)
         stream = self.headers() if ctx["first"] else b""
         stream += compose_nal(NalUnit(sh.nal_type, w.data()))

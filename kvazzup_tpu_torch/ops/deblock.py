@@ -11,8 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kvazzup_tpu.core.tables import CHROMA_QP_TABLE
-
+from ..core.tables import CHROMA_QP_TABLE
 from ..runtime import device_const
 
 # Table 8-12 (beta') and tc'

@@ -17,9 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from kvazzup_tpu.core.tables import DEQUANT_SCALES, QUANT_SCALES
-
 from .. import runtime
+from ..core.tables import DEQUANT_SCALES, QUANT_SCALES
 from .satd import _satd_tile
 
 LAUNCHES = {"quant": 0, "dequant": 0, "satd": 0}
@@ -80,71 +79,38 @@ def satd_rows_plain(a, b, log2: int, group: int = 1):
 # ------------------------------------------------------------------ wrappers
 
 
-def _check(t, name: str, ndim: int, shape=None):
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32, got {t.dtype}")
-    if t.ndim != ndim or (shape is not None and tuple(t.shape) != tuple(shape)):
-        raise ValueError(f"{name}: expected a {ndim}-D tensor"
-                         + (f" of shape {tuple(shape)}" if shape else "")
-                         + f", got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-
-
-def _route(*ts) -> bool:
-    """True for the CUDA kernel, False for the plain CPU version."""
-    dev = {t.device for t in ts}
-    if len(dev) != 1:
-        raise ValueError(f"operands on different devices: {sorted(map(str, dev))}")
-    kind = next(iter(dev)).type
-    if kind == "cpu":
-        return False
-    if kind != "cuda":
-        raise ValueError(f"no kernel for device type {kind!r}")
-    return True
-
-
-def _stream(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-
-
 def quantize_rows(coef, qp, dz, log2: int, bd: int = 8):
     """Quantize (B, K) int32 coefficients with per-row qp and deadzone
     numerator dz (171 intra / 85 inter)."""
-    _check(coef, "coef", 2)
+    runtime.check_operand(coef, "coef", 2)
     rows, k = coef.shape
-    _check(qp, "qp", 1, (rows,))
-    _check(dz, "dz", 1, (rows,))
-    if not _route(coef, qp, dz):
+    runtime.check_operand(qp, "qp", 1, (rows,))
+    runtime.check_operand(dz, "dz", 1, (rows,))
+    if not runtime.kernel_route(coef, qp, dz):
         return quantize_rows_plain(coef, qp, dz, log2, bd)
     out = torch.empty_like(coef)
     with torch.cuda.device(coef.device):
         err = runtime.kernel_lib().kvz_quant(
             coef.data_ptr(), qp.data_ptr(), dz.data_ptr(), out.data_ptr(),
-            rows, k, log2, bd, _stream(coef))
-    _raise_on(err, "quant")
+            rows, k, log2, bd, runtime.stream_ptr(coef))
+    runtime.check_launch(err, "quant")
     LAUNCHES["quant"] += 1
     return out
 
 
 def dequantize_rows(lev, qp, log2: int, bd: int = 8):
     """Dequantize (B, K) int32 levels with per-row qp."""
-    _check(lev, "lev", 2)
+    runtime.check_operand(lev, "lev", 2)
     rows, k = lev.shape
-    _check(qp, "qp", 1, (rows,))
-    if not _route(lev, qp):
+    runtime.check_operand(qp, "qp", 1, (rows,))
+    if not runtime.kernel_route(lev, qp):
         return dequantize_rows_plain(lev, qp, log2, bd)
     out = torch.empty_like(lev)
     with torch.cuda.device(lev.device):
         err = runtime.kernel_lib().kvz_dequant(
             lev.data_ptr(), qp.data_ptr(), out.data_ptr(), rows, k, log2, bd,
-            _stream(lev))
-    _raise_on(err, "dequant")
+            runtime.stream_ptr(lev))
+    runtime.check_launch(err, "dequant")
     LAUNCHES["dequant"] += 1
     return out
 
@@ -155,19 +121,19 @@ def satd_rows(a, b, log2: int, group: int = 1):
     n2 = 1 << (2 * log2)
     if log2 not in (2, 3, 4, 5):
         raise ValueError(f"satd: log2 must be 2..5, got {log2}")
-    _check(a, "a", 2)
+    runtime.check_operand(a, "a", 2)
     rows = a.shape[0]
     if group < 1 or rows % group:
         raise ValueError(f"satd: {rows} rows do not split into groups of {group}")
-    _check(a, "a", 2, (rows, n2))
-    _check(b, "b", 2, (rows // group, n2))
-    if not _route(a, b):
+    runtime.check_operand(a, "a", 2, (rows, n2))
+    runtime.check_operand(b, "b", 2, (rows // group, n2))
+    if not runtime.kernel_route(a, b):
         return satd_rows_plain(a, b, log2, group)
     out = torch.empty((rows,), dtype=torch.int32, device=a.device)
     with torch.cuda.device(a.device):
         err = runtime.kernel_lib().kvz_satd(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), rows, group, log2,
-            _stream(a))
-    _raise_on(err, "satd")
+            runtime.stream_ptr(a))
+    runtime.check_launch(err, "satd")
     LAUNCHES["satd"] += 1
     return out

@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from kvazzup_tpu.core.tables import (INTRA_INV_ANGLE, INTRA_PRED_ANGLE,
+from ..core.tables import (INTRA_INV_ANGLE, INTRA_PRED_ANGLE,
                                      intra_hor_ver_dist_thres)
 
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from kvazzup_tpu.core import tables
+from ..core import tables
 
 
 def transform_matrices(log2: int, dst: bool = False) -> np.ndarray:

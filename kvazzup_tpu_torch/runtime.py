@@ -5,9 +5,10 @@ exact integer arithmetic as f32 matrix products whose partial sums stay
 below 2^24 (`ops/ctu_kernels.py`), which TF32 would round.
 
 The CUDA kernels in `csrc/` are compiled on first use with plain `nvcc`
-into a shared library with a C interface (`build/`, content-addressed),
-and loaded with ctypes.  There is no CPU fallback for a CUDA tensor: a
-missing card, compiler or failed launch raises.
+(one process per source, all started together) and linked into one shared
+library with a C interface (`build/`, content-addressed), loaded with
+ctypes.  There is no CPU fallback for a CUDA tensor: a missing card,
+compiler or failed launch raises.
 """
 
 from __future__ import annotations
@@ -29,9 +30,9 @@ torch.set_float32_matmul_precision("highest")
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-KERNEL_SOURCES = ("q_kernels.cu",)
+KERNEL_SOURCES = ("q_kernels.cu", "sao_kernels.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -73,29 +74,56 @@ def _nvcc() -> str:
     return found
 
 
+def _wait(procs) -> list:
+    """Wait for every (name, Popen) and return their stderr texts; raise
+    with the compiler's output if any failed."""
+    errs, failed = [], []
+    for name, proc in procs:
+        _, err = proc.communicate()
+        errs.append(f"{name}:\n{err}")
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return errs
+
+
+def _nvcc_proc(args):
+    return subprocess.Popen([_nvcc(), *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
 def build_kernels(verbose: bool = False) -> str:
     """Compile `csrc/*.cu` for sm_90a into build/; return the library path.
 
-    The file name carries a hash of the sources and flags, so an edited
-    kernel never loads a stale build."""
+    Each source compiles in its own nvcc process, all at once; the objects
+    are then linked into one library.  The file name carries a hash of the
+    sources and flags, so an edited kernel never loads a stale build."""
     srcs = [os.path.join(CSRC_DIR, s) for s in KERNEL_SOURCES]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
         with open(s, "rb") as f:
             h.update(f.read())
-    so = os.path.join(BUILD_DIR, f"libkvz_q_{h.hexdigest()[:16]}.so")
+    tag = h.hexdigest()[:16]
+    so = os.path.join(BUILD_DIR, f"libkvz_{tag}.so")
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *srcs]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr, flush=True)
-    os.replace(tmp, so)
+    pid = os.getpid()
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.{pid}.o") for s in srcs]
+    xptxas = ["-Xptxas", "-v"] if verbose else []
+    try:
+        errs = _wait([(os.path.basename(s), _nvcc_proc([*NVCC_FLAGS, *xptxas, "-c", s, "-o", o]))
+                      for s, o in zip(srcs, objs)])
+        if verbose:
+            print("\n".join(errs), flush=True)
+        tmp = f"{so}.{pid}.tmp"
+        _wait([("link", _nvcc_proc(["-shared", "-o", tmp, *objs]))])
+        os.replace(tmp, so)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     return so
 
 
@@ -104,7 +132,8 @@ def _bind(lib):
     lib.kvz_quant.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.kvz_dequant.argtypes = [p, p, p, i, i, i, i, p]
     lib.kvz_satd.argtypes = [p, p, p, i, i, i, p]
-    for fn in (lib.kvz_quant, lib.kvz_dequant, lib.kvz_satd):
+    lib.kvz_sao_apply.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    for fn in (lib.kvz_quant, lib.kvz_dequant, lib.kvz_satd, lib.kvz_sao_apply):
         fn.restype = ctypes.c_int
     return lib
 
@@ -116,3 +145,42 @@ def kernel_lib():
         if _LIB is None:
             _LIB = _bind(ctypes.CDLL(build_kernels()))
         return _LIB
+
+
+def check_operand(t, name: str, ndim: int, shape=None, dtype=torch.int32) -> None:
+    """Raise unless t is a contiguous `ndim`-D tensor of `dtype` (and of
+    `shape`, when given): what a kernel's C entry point takes."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.ndim != ndim or (shape is not None and tuple(t.shape) != tuple(shape)):
+        raise ValueError(f"{name}: expected a {ndim}-D tensor"
+                         + (f" of shape {tuple(shape)}" if shape else "")
+                         + f", got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def kernel_route(*ts) -> bool:
+    """True to launch the CUDA kernel, False to run the plain version (CPU
+    tensors).  Operands on different devices, or on a device type without
+    a kernel, raise."""
+    dev = {t.device for t in ts}
+    if len(dev) != 1:
+        raise ValueError(f"operands on different devices: {sorted(map(str, dev))}")
+    kind = next(iter(dev)).type
+    if kind == "cpu":
+        return False
+    if kind != "cuda":
+        raise ValueError(f"no kernel for device type {kind!r}")
+    return True
+
+
+def stream_ptr(t) -> int:
+    """The raw handle of PyTorch's current CUDA stream on t's device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise if a kernel's C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

@@ -1,4 +1,5 @@
-"""The port's hand-kernel wrappers (kvazzup_tpu_torch/ops/hopper_q.py).
+"""The port's hand-kernel wrappers (kvazzup_tpu_torch/ops/hopper_q.py and
+the SAO wrapper in ops/sao.py).
 
 CPU: the wrappers take their plain PyTorch versions, validate their
 operands and never count a launch.  GPU (`cuda` marker, skipped without a
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from kvazzup_tpu_torch.ops import hopper_q as thq
+from kvazzup_tpu_torch.ops import sao
 
 
 def T(a):
@@ -57,3 +59,24 @@ def test_kernels_match_plain_on_gpu():
         b = T(rng.integers(0, 256, (10, k)).astype(np.int32))
         got = thq.satd_rows(a.to(dev), b.to(dev), log2, group=35)
         assert torch.equal(got.cpu(), thq.satd_rows_plain(a, b, log2, group=35))
+
+
+@pytest.mark.cuda
+def test_sao_kernel_matches_plain_on_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels are CUDA C++ for sm_90a)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(22)
+    # CTB-aligned luma and chroma planes, and a ragged one (partial CTBs)
+    for ctb, h, w in ((16, 64, 96), (8, 32, 48), (16, 70, 100)):
+        cbh, cbw = -(-h // ctb), -(-w // ctb)
+        rec = T(rng.integers(0, 256, (h, w)).astype(np.uint8))
+        typ = T(rng.integers(0, 3, (cbh, cbw)).astype(np.int32))
+        aux = T(np.where(typ.numpy() == 2, rng.integers(0, 4, (cbh, cbw)),
+                         rng.integers(0, 29, (cbh, cbw))).astype(np.int32))
+        offs = T(rng.integers(-7, 8, (cbh, cbw, 4)).astype(np.int32))
+        sao.reset_launches()
+        got = sao.sao_apply(*(t.to(dev) for t in (rec, typ, aux, offs)), ctb=ctb)
+        torch.cuda.synchronize()
+        assert sao.LAUNCHES == {"sao": 1}
+        assert torch.equal(got.cpu(), sao.sao_apply_plain(rec, typ, aux, offs, ctb=ctb))

@@ -4,7 +4,8 @@
 CLI's defaults (CTB16, deblocking on): the port's Annex-B stream must be
 byte-identical to the JAX `Encoder`'s, for merge 1 and merge 5; the JAX
 `Decoder` must decode it to the port's reconstruction; the encoder state
-must carry over from JAX to the port; and the port must not import JAX.
+must carry over from JAX to the port; and the port must import neither JAX
+nor the JAX package.
 """
 
 import os
@@ -94,7 +95,7 @@ def test_cpu_encode_launches_no_kernel(frames):
     assert hopper_q.LAUNCHES == {"quant": 0, "dequant": 0, "satd": 0}
 
 
-@pytest.mark.parametrize("kw", [dict(sao_enabled=True, wpp=True), dict(wpp=True),
+@pytest.mark.parametrize("kw", [dict(slices=2), dict(cu_qp_delta=True),
                                 dict(ctb_log2=5, min_cb_log2=3, max_tb_log2=5),
                                 dict(rdoq=True), dict(temporal_mvp=True),
                                 dict(fast_decision=False)])
@@ -113,25 +114,81 @@ def test_cli_encode_matches_encoder(frames, tmp_path, runs):
                  "--device", "cpu"]) == 0
     assert out.read_bytes() == b"".join(runs[1][0][:2])
     with pytest.raises(NotImplementedError):
-        main(["encode", str(src), str(out), "--size", f"{W}x{H}", "--sao", "--device", "cpu"])
+        main(["encode", str(src), str(out), "--size", f"{W}x{H}", "--tmvp", "--device", "cpu"])
+
+
+def _port_modules():
+    root = os.path.join(REPO, "kvazzup_tpu_torch")
+    for d, _, files in os.walk(root):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
 
 
 def test_port_imports_no_jax():
+    """Importing every module of the port, and encoding a frame with its
+    native CABAC, loads neither JAX nor any module of the JAX package."""
+    mods = [os.path.relpath(p, REPO)[:-3].replace(os.sep, ".").removesuffix(".__init__")
+            for p in _port_modules()]
+    mods = sorted(m for m in mods if not m.endswith("__main__"))
     code = (
-        "import sys\n"
-        "import kvazzup_tpu_torch, kvazzup_tpu_torch.cli, kvazzup_tpu_torch.runtime\n"
-        "import kvazzup_tpu_torch.encoder.top, kvazzup_tpu_torch.encoder.frame_intra\n"
-        "import kvazzup_tpu_torch.encoder.frame_inter, kvazzup_tpu_torch.ops.hopper_q\n"
-        "import kvazzup_tpu_torch.ops.me, kvazzup_tpu_torch.ops.deblock\n"
-        "import kvazzup_tpu_torch.ops.costs, kvazzup_tpu_torch.ops.satd\n"
-        "import kvazzup_tpu_torch.inputs\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "import sys, importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from kvazzup_tpu_torch.encoder.top import Encoder\n"
+        "from kvazzup_tpu_torch.inputs import stream_config, synthetic_frames\n"
+        "f = synthetic_frames(32, 32, 1, seed=1)[0]\n"
+        "Encoder(stream_config(32, 32, sao=True), device='cpu').encode_frame(*f)\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'kvazzup_tpu')\n"
+        "             or m.startswith(('jax.', 'kvazzup_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        cwd=REPO, env=env, timeout=120)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_port_sources_import_no_jax_package():
+    """No module of the port names jax or kvazzup_tpu in an import, at the
+    top or inside a function."""
+    import ast
+
+    bad = []
+    for path in _port_modules():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for n in ast.walk(tree):
+            if isinstance(n, ast.Import):
+                names = [a.name for a in n.names]
+            elif isinstance(n, ast.ImportFrom) and n.level == 0:
+                names = [n.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}:{n.lineno} {m}" for m in names
+                    if m.split(".")[0] in ("jax", "jaxlib", "kvazzup_tpu")]
+    assert not bad, bad
+
+
+def test_native_cabac_builds_in_the_port_and_raises_on_failure(monkeypatch, tmp_path):
+    """The port's native CABAC library lives in kvazzup_tpu_torch/build/; a
+    failed build raises instead of leaving the encoder on the Python tier."""
+    from kvazzup_tpu_torch import native
+
+    lib = native.get_lib()
+    assert os.path.dirname(lib._name) == os.path.join(REPO, "kvazzup_tpu_torch", "build")
+
+    def failing_run(cmd, check=False, **kw):
+        if check:
+            raise subprocess.CalledProcessError(1, cmd)
+        return subprocess.CompletedProcess(cmd, 1, "", "no compiler")
+
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native.subprocess, "run", failing_run)
+    with pytest.raises(RuntimeError, match="no compiler"):
+        native.get_lib()
+    assert native._LIB is None
 
 
 def test_chip_smoke_imports_only_the_port():

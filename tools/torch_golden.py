@@ -2,14 +2,16 @@
 
 Encodes `kvazzup_tpu.io.yuv.synthetic_frames(W, H, N, seed)` with the JAX
 `Encoder` at the CLI's default low-delay configuration (CTB16, deblocking
-on, merge 1, intra period 64) and records, per frame, the SHA-256 and byte
-length of the Annex-B output plus a SHA-256 of the reconstruction.
-`chip_smoke.py` encodes the same frames with `kvazzup_tpu_torch` on the GPU
-and compares against this file.
+on, merge 1, intra period 64), or with `--sao` at the CLI's `--sao`
+configuration (SAO on, which at CTB16 turns WPP on), and records, per
+frame, the SHA-256 and byte length of the Annex-B output plus a SHA-256 of
+the reconstruction.  `chip_smoke.py` encodes the same frames with
+`kvazzup_tpu_torch` on the GPU and compares against these files.
 
 Runs on the CPU (JAX only; the port's package is not imported):
 
     python tools/torch_golden.py            # 1920x1080, 4 frames, QP 32
+    python tools/torch_golden.py --sao      # the same with SAO + WPP
     python tools/torch_golden.py --width 96 --height 64 --out /tmp/g.json
 """
 
@@ -33,8 +35,8 @@ from kvazzup_tpu.core.params import StreamConfig  # noqa: E402
 from kvazzup_tpu.encoder.top import Encoder  # noqa: E402
 from kvazzup_tpu.io.yuv import synthetic_frames  # noqa: E402
 
-DEFAULT_OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                           "kvazzup_tpu_torch", "golden", "ld_1080p_q32.json")
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "kvazzup_tpu_torch", "golden")
 
 
 def recon_digest(planes) -> str:
@@ -53,11 +55,18 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=12)
     ap.add_argument("--merge", type=int, default=1)
     ap.add_argument("--intra-period", type=int, default=64)
-    ap.add_argument("--out", default=DEFAULT_OUT)
+    ap.add_argument("--sao", action="store_true",
+                    help="SAO on (and WPP, as the JAX CLI sets it at CTB16)")
+    ap.add_argument("--out", default=None,
+                    help="default: kvazzup_tpu_torch/golden/ld[_sao]_1080p_q32.json")
     args = ap.parse_args(argv)
+    if args.out is None:
+        name = "ld_sao_1080p_q32.json" if args.sao else "ld_1080p_q32.json"
+        args.out = os.path.join(GOLDEN_DIR, name)
 
     cfg = StreamConfig.for_source(args.width, args.height, qp=args.qp,
-                                  merge_cand=args.merge)
+                                  merge_cand=args.merge, sao_enabled=args.sao,
+                                  wpp=args.sao)
     enc = Encoder(cfg, intra_period=args.intra_period)
     frames = synthetic_frames(args.width, args.height, args.frames, seed=args.seed)
     out = []

@@ -5,10 +5,12 @@
 Warms up on a throwaway encoder (IDR + P), then for one IDR and one P
 frame of `synthetic_frames(W, H, 3, seed=12)`:
   * times each stage with the host clock around work that ends in
-    torch.cuda.synchronize() (prepasses, the wave loop, deblocking);
-  * profiles the whole device stage with torch.profiler and reports the
-    kernel count, summed kernel time, device busy share of the wall time
-    and the top kernels by device time.
+    torch.cuda.synchronize() (prepasses, the wave loop, deblocking, and
+    the `--sao` path's SAO decisions and application on the deblocked IDR
+    frame);
+  * profiles the whole device stage with torch.profiler, and the SAO stage
+    alone, and reports the kernel count, summed kernel time, device busy
+    share of the wall time and the top kernels by device time.
 Needs a CUDA device; prints one JSON line last.
 """
 
@@ -32,6 +34,8 @@ from kvazzup_tpu_torch.inputs import stream_config, synthetic_frames  # noqa: E4
 from kvazzup_tpu_torch.ops import mc  # noqa: E402
 from kvazzup_tpu_torch.ops.deblock import deblock_frame  # noqa: E402
 from kvazzup_tpu_torch.ops.me import motion_search  # noqa: E402
+from kvazzup_tpu_torch.ops.sao import (sao_apply, sao_decide, sao_decide_chroma,  # noqa: E402
+                                       sao_lambda)
 
 
 def timed(fn):
@@ -84,8 +88,24 @@ def main(argv=None) -> int:
     out_i, stages["idr_total"] = timed(lambda: frame_intra.encode_frame_intra_fast(
         y, u, v, qp, width=w, height=h))
     stages["idr_wave_loop"] = stages["idr_total"] - stages["idr_mode_prepass"]
-    _, stages["deblock_idr"] = timed(lambda: deblock_frame(
+    db, stages["deblock_idr"] = timed(lambda: deblock_frame(
         out_i["recon_y"], out_i["recon_u"], out_i["recon_v"], qp))
+    lam = sao_lambda(qp)
+
+    def sao_apply_planes(luma, chroma):
+        return (sao_apply(db[0], *luma[:3], ctb=16),
+                sao_apply(db[1], chroma[0], chroma[2], chroma[4], ctb=8),
+                sao_apply(db[2], chroma[0], chroma[3], chroma[5], ctb=8))
+
+    def sao_stage():
+        return sao_apply_planes(sao_decide(y, db[0], lam, ctb=16),
+                                sao_decide_chroma(u, db[1], v, db[2], lam, ctb=8))
+
+    timed(sao_stage)  # first use of its kernels in this process: not timed
+    luma, stages["sao_decide_luma"] = timed(lambda: sao_decide(y, db[0], lam, ctb=16))
+    chroma, stages["sao_decide_chroma"] = timed(lambda: sao_decide_chroma(
+        u, db[1], v, db[2], lam, ctb=8))
+    _, stages["sao_apply_3_planes"] = timed(lambda: sao_apply_planes(luma, chroma))
     lam_x1k = int(frame_intra.LAMBDA_X1K[qp])
     _, stages["p_motion_search"] = timed(lambda: motion_search(
         y, ref[0], lam_x1k, width=w, height=h))
@@ -103,8 +123,10 @@ def main(argv=None) -> int:
 
     enc = Encoder(cfg, intra_period=64, device=dev)
     prof = {}
-    for kind, f in (("idr", raw[0]), ("p", raw[1])):
-        wall, n, busy, top = device_profile(lambda f=f: enc.encode_frame_device(*f))
+    for kind, fn in (("idr", lambda: enc.encode_frame_device(*raw[0])),
+                     ("p", lambda: enc.encode_frame_device(*raw[1])),
+                     ("sao_stage", sao_stage)):
+        wall, n, busy, top = device_profile(fn)
         prof[kind] = {"wall_ms": wall, "kernels": n, "kernel_ms": busy,
                       "busy_share": busy / wall, "top": top}
         print(f"{kind}: wall {wall:.1f} ms, {n} kernels, kernel time {busy:.1f} ms, "
