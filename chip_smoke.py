@@ -5,10 +5,10 @@
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card's name and power limit (nvidia-smi), then the CUDA kernel build
      (one nvcc per source, in parallel);
-  2. each hand kernel (SATD, quant, dequant, SAO apply) against its plain
-     PyTorch version on the card at the 1080p main-path shapes,
-     element-identical (tolerance 0), plus first-index tie-breaking of
-     argmin / stable sort;
+  2. each hand kernel (SATD, quant, dequant, the fused residual coding, SAO
+     apply) against its plain PyTorch version on the card at the 1080p
+     main-path shapes, element-identical (tolerance 0), plus first-index
+     tie-breaking of argmin / stable sort;
   3. two 1920x1080 IDR + 3 P encodes of synthetic_frames(1920, 1080, 4,
      seed=12) at QP 32 through `Encoder` on cuda: the CLI defaults, then
      `--sao` (SAO + WPP).  Each is held against its JAX golden
@@ -16,10 +16,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      per-frame bytes, stream SHA-256 and recon SHA-256; each prints its
      per-frame device and entropy times and the launch count of every
      kernel, counted from 0 over that encode alone (every kernel the path
-     runs must launch; SAO at least 3 times a frame);
-  4. kernel vs plain times at the main-path shapes (CUDA events), beside
+     runs must launch; the residual kernel once per wave and once per IDR
+     mode prepass, quant and dequant never: the encoder reaches them only
+     through the residual kernel; SAO at least 3 times a frame);
+  4. kernel vs plain times at the main-path shapes (CUDA events around 20
+     calls, the least of 5 runs), beside
      each kernel's bound (bytes moved over 3.35 TB/s, operations over 67
-     Tops/s, the larger).
+     Tops/s, the larger; every input read once, every output written
+     once).
 The next-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -39,6 +43,7 @@ import torch
 
 from kvazzup_tpu_torch import runtime
 from kvazzup_tpu_torch.encoder.top import Encoder
+from kvazzup_tpu_torch.encoder.wavefront import schedule_r
 from kvazzup_tpu_torch.inputs import stream_config, synthetic_frames
 from kvazzup_tpu_torch.ops import hopper_q, sao
 
@@ -48,10 +53,13 @@ PATHS = (("low-delay", "ld_1080p_q32.json"), ("low-delay --sao", "ld_sao_1080p_q
 SOURCE = {"satd": "kvazzup_tpu_torch/csrc/q_kernels.cu",
           "quant": "kvazzup_tpu_torch/csrc/q_kernels.cu",
           "dequant": "kvazzup_tpu_torch/csrc/q_kernels.cu",
+          "residual": "kvazzup_tpu_torch/csrc/resid_kernels.cu",
           "sao": "kvazzup_tpu_torch/csrc/sao_kernels.cu"}
 REPLACES = {"satd": "kvazzup_tpu/ops/pallas_q.py:85",
             "quant": "kvazzup_tpu/ops/pallas_q.py:56",
             "dequant": "kvazzup_tpu/ops/pallas_q.py:70",
+            # fuses the quant (:56) and dequant (:70) kernels with the transforms
+            "residual": "kvazzup_tpu/ops/pallas_q.py:56",
             "sao": "kvazzup_tpu/ops/sao.py:185"}
 KERNELS = tuple(REPLACES)
 NCTU, LANES = 8160, 68  # 1920x1088 at CTB16: 120 x 68 CTUs, 68 lanes per wave
@@ -60,8 +68,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # peak; its int32 rate is no higher, so the time bound stays a lower bound
 OPS_PER_S = 67e12
 # arithmetic operations per element of the first operand (per output sample
-# for SAO), counted from each kernel's source
-OPS_PER_ELEM = {"satd": 9, "quant": 7, "dequant": 5, "sao": 12}
+# for SAO), counted from each kernel's source; for the residual kernel per
+# sample of a block of N x N by log2 N: four transform stages of N
+# multiply-adds (8 N) and 43 more (the residual, 4 rounding shifts, quant 16,
+# dequant 11, 4 clips, the recon)
+OPS_PER_ELEM = {"satd": 9, "quant": 7, "dequant": 5, "sao": 12,
+                "residual": {3: 8 * 8 + 43, 4: 8 * 16 + 43}}
 
 
 def log(msg: str) -> None:
@@ -75,16 +87,21 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
+def cuda_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """ms per call of fn, CUDA events around `iters` calls: the least of
+    `reps` such runs, so that a pause of the host in one run does not count."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    best = float("inf")
+    for _ in range(reps):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
 
 
 def launches() -> dict:
@@ -97,8 +114,9 @@ def reset_launches() -> None:
 
 
 def kernel_cases(dev):
-    """(kernel, label, kernel_fn, plain_fn, operands) at the 1080p main-path
-    shapes; the operands are the inputs the kernel reads."""
+    """(kernel, label, kernel_fn, plain_fn, operands, operations) at the
+    1080p main-path shapes; the operands are the inputs the kernel reads,
+    the operations its arithmetic on them (OPS_PER_ELEM)."""
     rng = np.random.default_rng(2026)
 
     def t(a):
@@ -111,33 +129,61 @@ def kernel_cases(dev):
         return t(np.where(rng.integers(0, 2, (b,)) > 0, 171, 85).astype(np.int32))
 
     cases = []
-    # SATD: P-frame ME cost (8160, 256); IDR prepass 35 predictions against
-    # the broadcast original (8160*35 rows); in-wave merge cost (68, 256)
+
+    def add(name, label, kfn, pfn, operands):
+        cases.append((name, label, kfn, pfn, operands,
+                      OPS_PER_ELEM[name] * operands[0].numel()))
+
+    # SATD: P-frame ME cost (8160, 256); IDR prepass 35 and P intra prepass
+    # 11 predictions against the broadcast original (8160*35, 8160*11 rows);
+    # in-wave merge cost (68, 256)
     pix = lambda *s: t(rng.integers(0, 256, s).astype(np.int32))  # noqa: E731
     a, b = pix(NCTU, 256), pix(NCTU, 256)
-    cases.append(("satd", "ME (8160,256)", lambda a=a, b=b: hopper_q.satd_rows(a, b, 4),
-                  lambda a=a, b=b: hopper_q.satd_rows_plain(a, b, 4), (a, b)))
+    add("satd", "ME (8160,256)", lambda a=a, b=b: hopper_q.satd_rows(a, b, 4),
+        lambda a=a, b=b: hopper_q.satd_rows_plain(a, b, 4), (a, b))
     a35, o = pix(NCTU * 35, 256), pix(NCTU, 256)
-    cases.append(("satd", "prepass (8160*35,256) bcast",
-                  lambda: hopper_q.satd_rows(a35, o, 4, group=35),
-                  lambda: hopper_q.satd_rows_plain(a35, o, 4, group=35), (a35, o)))
+    add("satd", "prepass (8160*35,256) bcast",
+        lambda: hopper_q.satd_rows(a35, o, 4, group=35),
+        lambda: hopper_q.satd_rows_plain(a35, o, 4, group=35), (a35, o))
+    a11, o11 = pix(NCTU * 11, 256), pix(NCTU, 256)
+    add("satd", "P prepass (8160*11,256) bcast",
+        lambda: hopper_q.satd_rows(a11, o11, 4, group=11),
+        lambda: hopper_q.satd_rows_plain(a11, o11, 4, group=11), (a11, o11))
     aw, bw = pix(LANES, 256), pix(LANES, 256)
-    cases.append(("satd", "wave (68,256)", lambda: hopper_q.satd_rows(aw, bw, 4),
-                  lambda: hopper_q.satd_rows_plain(aw, bw, 4), (aw, bw)))
+    add("satd", "wave (68,256)", lambda: hopper_q.satd_rows(aw, bw, 4),
+        lambda: hopper_q.satd_rows_plain(aw, bw, 4), (aw, bw))
     for rows, k, log2, label in ((NCTU * 3, 256, 4, "prepass (8160*3,256)"),
                                  (LANES, 256, 4, "wave luma (68,256)"),
                                  (LANES, 64, 3, "wave chroma (68,64)")):
         c = t(rng.integers(-30000, 30000, (rows, k)).astype(np.int32))
         lv = t(rng.integers(-32768, 32768, (rows, k)).astype(np.int32))
         qp, dz = qrows(rows), dzrows(rows)
-        cases.append(("quant", label,
-                      lambda c=c, qp=qp, dz=dz, l=log2: hopper_q.quantize_rows(c, qp, dz, l),
-                      lambda c=c, qp=qp, dz=dz, l=log2: hopper_q.quantize_rows_plain(c, qp, dz, l),
-                      (c, qp, dz)))
-        cases.append(("dequant", label,
-                      lambda lv=lv, qp=qp, l=log2: hopper_q.dequantize_rows(lv, qp, l),
-                      lambda lv=lv, qp=qp, l=log2: hopper_q.dequantize_rows_plain(lv, qp, l),
-                      (lv, qp)))
+        add("quant", label,
+            lambda c=c, qp=qp, dz=dz, l=log2: hopper_q.quantize_rows(c, qp, dz, l),
+            lambda c=c, qp=qp, dz=dz, l=log2: hopper_q.quantize_rows_plain(c, qp, dz, l),
+            (c, qp, dz))
+        add("dequant", label,
+            lambda lv=lv, qp=qp, l=log2: hopper_q.dequantize_rows(lv, qp, l),
+            lambda lv=lv, qp=qp, l=log2: hopper_q.dequantize_rows_plain(lv, qp, l),
+            (lv, qp))
+    # residual coding: the IDR mode prepass (three candidate predictions per
+    # original, qp per CTU, all intra) and one wave (luma and both chroma
+    # planes of 68 lanes, qp and the intra/inter deadzone per lane)
+    res_ops = OPS_PER_ELEM["residual"]
+    po, pp, pq = pix(NCTU, 256), pix(NCTU * 3, 256), qrows(NCTU)
+    cases.append(("residual", "prepass (8160*3,256) group 3",
+                  lambda: hopper_q.code_residual_rows(po, pp, pq, True, 4, group=3),
+                  lambda: hopper_q.code_residual_rows_plain(po, pp, pq, True, 4, group=3),
+                  (po, pp, pq), res_ops[4] * pp.numel()))
+    wave = [(pix(LANES, 256), pix(LANES, 256), qrows(LANES), 4)] + [
+        (pix(LANES, 64), pix(LANES, 64), qrows(LANES), 3) for _ in range(2)]
+    intra = t(rng.integers(0, 2, (LANES,)).astype(bool))
+    cases.append(("residual", "wave 68 x (256 + 64 + 64)",
+                  lambda: hopper_q.code_residual_wave(*wave, intra),
+                  lambda: [hopper_q.code_residual_rows_plain(o, p, q, intra, lg)
+                           for o, p, q, lg in wave],
+                  [x for o, p, q, _ in wave for x in (o, p, q)] + [intra],
+                  sum(res_ops[lg] * p.numel() for _, p, _, lg in wave)))
     # SAO apply: luma 1088x1920 at ctb 16, chroma 544x960 at ctb 8; random
     # parameters covering off, band offset and all four edge classes
     for h, w, ctb, label in ((1088, 1920, 16, "luma (1088,1920) ctb16"),
@@ -153,35 +199,41 @@ def kernel_cases(dev):
             assert ((typ_np == 2) & (aux_np == k)).any(), "SAO case misses an edge class"
         typ, aux = t(typ_np), t(aux_np)
         offs = t(rng.integers(-7, 8, (cbh, cbw, 4)).astype(np.int32))
-        cases.append(("sao", label,
-                      lambda r=rec, a=typ, b=aux, o=offs, c=ctb: sao.sao_apply(r, a, b, o, ctb=c),
-                      lambda r=rec, a=typ, b=aux, o=offs, c=ctb: sao.sao_apply_plain(
-                          r, a, b, o, ctb=c),
-                      (rec, typ, aux, offs)))
+        add("sao", label,
+            lambda r=rec, a=typ, b=aux, o=offs, c=ctb: sao.sao_apply(r, a, b, o, ctb=c),
+            lambda r=rec, a=typ, b=aux, o=offs, c=ctb: sao.sao_apply_plain(r, a, b, o, ctb=c),
+            (rec, typ, aux, offs))
     return cases
 
 
-def bound(name, operands, out) -> tuple[float, str]:
+def outputs(out) -> list:
+    """A kernel's output tensors, in order (nested tuples and lists flattened)."""
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in outputs(o)]
+    return [out]
+
+
+def bound(operands, out, n_ops) -> tuple[float, str]:
     """The least time the card could take for one call: each operand read
-    once and the output written once over the memory rate, against the
-    arithmetic over the peak rate; returns (ms, what bounds it)."""
-    nbytes = sum(x.numel() * x.element_size() for x in operands)
-    nbytes += out.numel() * out.element_size()
+    once and each output written once over the memory rate, against the
+    n_ops operations over the peak rate; returns (ms, what bounds it)."""
+    nbytes = sum(x.numel() * x.element_size() for x in [*operands, *outputs(out)])
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = OPS_PER_ELEM[name] * operands[0].numel() / OPS_PER_S * 1e3
+    t_ops = n_ops / OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_kernels(cases) -> dict:
     """Kernel == plain on every case; returns max abs error per kernel."""
     err = {}
-    for name, label, kfn, pfn, _ in cases:
-        got, want = kfn(), pfn()
+    for name, label, kfn, pfn, _, _ in cases:
+        got, want = outputs(kfn()), outputs(pfn())
         torch.cuda.synchronize()
-        if got.shape != want.shape or got.dtype != want.dtype:
-            raise AssertionError(f"{name} {label}: {got.shape}/{got.dtype} vs "
-                                 f"{want.shape}/{want.dtype}")
-        e = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if [(g.shape, g.dtype) for g in got] != [(w.shape, w.dtype) for w in want]:
+            raise AssertionError(f"{name} {label}: {[(g.shape, g.dtype) for g in got]} vs "
+                                 f"{[(w.shape, w.dtype) for w in want]}")
+        e = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                for g, w in zip(got, want))
         log(f"  {name:8s} {label:30s} max_abs_err={e} (tolerance 0)")
         if e != 0:
             raise AssertionError(f"{name} {label}: kernel disagrees with plain version")
@@ -254,10 +306,17 @@ def encode_1080p(dev, golden) -> tuple[list, dict]:
         raise AssertionError(f"1080p stream or recon differs from the JAX golden in frames {bad}")
     if rows[0]["recon_shape"] != [[h, w], [h // 2, w // 2], [h // 2, w // 2]]:
         raise AssertionError(f"unexpected recon shape {rows[0]['recon_shape']}")
-    path_kernels = ("satd", "quant", "dequant") + (("sao",) if with_sao else ())
+    path_kernels = ("satd", "residual") + (("sao",) if with_sao else ())
     zero = [k for k in path_kernels if counts[k] <= 0]
     if zero:
         raise AssertionError(f"kernels never launched on the main path: {zero}")
+    # one residual launch per wave of every frame, one more per IDR prepass
+    n_waves = schedule_r(cfg.ctbs_w, cfg.ctbs_h)["n_waves"]
+    want = sum(n_waves + (r["kind"] == "idr") for r in rows)
+    if counts["residual"] != want:
+        raise AssertionError(f"residual launched {counts['residual']} times, expected {want}")
+    if counts["quant"] or counts["dequant"]:
+        raise AssertionError(f"quant / dequant launched on the main path: {counts}")
     if with_sao and counts["sao"] < 3 * nf:
         raise AssertionError(f"SAO launched {counts['sao']} times in {nf} frames, "
                              f"expected 3 a frame")
@@ -295,11 +354,11 @@ def main() -> int:
         for k in KERNELS:
             total[k] += counts[k]
 
-    log("phase 4: kernel vs plain times (CUDA events, mean of 20 after warm-up)")
+    log("phase 4: kernel vs plain times (CUDA events, mean of 20 calls, least of 5 runs)")
     times = {}
-    for name, label, kfn, pfn, operands in cases:
+    for name, label, kfn, pfn, operands, n_ops in cases:
         km, pm = cuda_ms(kfn), cuda_ms(pfn)
-        bms, by = bound(name, operands, kfn())
+        bms, by = bound(operands, kfn(), n_ops)
         log(f"  {name:8s} {label:30s} kernel {km:.4f} ms  plain {pm:.4f} ms  "
             f"bound {bms:.4f} ms ({by})")
         times.setdefault(name, (km, pm, bms, by))  # first case = the largest shape

@@ -21,8 +21,8 @@ from ..ops import intra as intra_ops
 from ..ops.costs import bits_of, fma
 from ..ops.mc import (edge_pad, extract_mc_neighborhoods, mc_chroma_window_batch,
                       mc_luma_window_batch, sheared_ref_strips, strip_window_slice)
+from ..ops.hopper_q import code_residual_wave
 from ..ops.me import motion_search
-from ..ops.quant import dequantize, quantize
 from .frame_intra import (LAMBDA_X1K, N, P_PREPASS_MODES, _shift_lanes, from_blocks,
                           frame_setup, intra_cost_prepass, ring0, ring_boundary,
                           ring_push, wave_flags, wave_inputs, wave_to_raster)
@@ -203,23 +203,21 @@ def encode_frame_p_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int,
         preds = ck.predict_modes_subset_flat(a_y, 4, True, P_PREPASS_MODES)
         pred_intra = preds.gather(1, isel[:, None, None].expand(-1, 1, n * n))[:, 0]
         pred_y = torch.where(use_intra[:, None], pred_intra, pred_inter)
-        lev_y = quantize(ck.fwd_transform_flat(oyw - pred_y, 4), qp_w[d], 4, use_intra)
-        deq = dequantize(lev_y, qp_w[d], 4)
-        rec_y = (pred_y + ck.inv_transform_flat(deq, 4)).clamp(0, 255)
-        ry = ring_push(ry, rec_y, n)
-
-        levs_c, recs_c = [], []
-        for ci, oc_w in enumerate((ou_w, ov_w)):
+        pred_c = []
+        for ci in (0, 1):
             a_c = intra_ops.substitute_refs_ctb(ring_boundary(*rc[ci], m), fl, fa, ftr, m)
             preds_c = ck.predict_modes_subset_flat(a_c, 3, False, P_PREPASS_MODES)
             pred_ci = preds_c.gather(1, isel[:, None, None].expand(-1, 1, m * m))[:, 0]
             pred_cm = mc_chroma_window_batch(winc[ci], mv_sel, m, SEARCH_RANGE).reshape(lanes, -1)
-            pred_c = torch.where(use_intra[:, None], pred_ci, pred_cm)
-            lev_c = quantize(ck.fwd_transform_flat(oc_w[d] - pred_c, 3), qpc_w[d], 3, use_intra)
-            rec_c = (pred_c + ck.inv_transform_flat(dequantize(lev_c, qpc_w[d], 3), 3)).clamp(0, 255)
-            rc[ci] = ring_push(rc[ci], rec_c, m)
-            levs_c.append(lev_c)
-            recs_c.append(rec_c)
+            pred_c.append(torch.where(use_intra[:, None], pred_ci, pred_cm))
+
+        # the lane's three planes share its intra/inter deadzone
+        (lev_y, rec_y), *chroma = code_residual_wave(
+            (oyw, pred_y, qp_w[d], 4), (ou_w[d], pred_c[0], qpc_w[d], 3),
+            (ov_w[d], pred_c[1], qpc_w[d], 3), use_intra)
+        ry = ring_push(ry, rec_y, n)
+        levs_c, recs_c = [lev for lev, _ in chroma], [rec for _, rec in chroma]
+        rc = [ring_push(rc[ci], recs_c[ci], m) for ci in (0, 1)]
 
         zero_resid = ((lev_y == 0).all(dim=-1) & (levs_c[0] == 0).all(dim=-1)
                       & (levs_c[1] == 0).all(dim=-1))

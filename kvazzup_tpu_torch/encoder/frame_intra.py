@@ -8,7 +8,8 @@ RD over the top 3).  `encode_frame_intra_fast` then walks the row-aligned
 wavefront (`wavefront.schedule_r`: wave d holds CTU
 (r, d - 2r) in lane r) and reconstructs: predict the chosen mode from the
 reconstructed boundary samples of the previous three waves (the "ring"),
-transform, quantize, dequantize, inverse transform.
+then transform, quantize, dequantize, inverse transform and reconstruct
+the wave's luma and both chroma planes in one `code_residual_wave` call.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from ..core.tables import CHROMA_QP_TABLE
 from ..ops import ctu_kernels as ck
 from ..ops import intra as intra_ops
 from ..ops.costs import bits_row_sum, fma
-from ..ops.quant import dequantize, quantize
+from ..ops.hopper_q import code_residual_rows, code_residual_wave
 from ..runtime import device_const
 from .wavefront import schedule_r
 
@@ -156,9 +157,9 @@ def intra_mode_prepass(y, oy, qp_rows, lam_rows, *, width: int, height: int):
     # the reference's top_k keeps the lower index first on ties
     cand = torch.sort(cost, dim=1, stable=True).indices[:, :3]
     cand_preds = _take(preds, cand)
-    coef = ck.fwd_transform_flat(oy_flat[:, None, :] - cand_preds, 4)
-    lev = quantize(coef, qp_rows, 4, True)
-    rec = (cand_preds + ck.inv_transform_flat(dequantize(lev, qp_rows, 4), 4)).clamp(0, 255)
+    lev, rec = code_residual_rows(oy_flat, cand_preds.reshape(-1, N * N), qp_rows, True, 4,
+                                  group=3)
+    lev, rec = lev.reshape(cand_preds.shape), rec.reshape(cand_preds.shape)
     sse = ((rec - oy_flat[:, None, :]) ** 2).sum(dim=-1, dtype=torch.int32).to(torch.float32)
     lam2 = lam_rows[:, None] * lam_rows[:, None]
     rd = fma(lam2, bits_row_sum(lev) + bits.gather(1, cand), sse)
@@ -231,15 +232,6 @@ def ring0(lanes: int, n: int, device):
     return (z, z.clone())
 
 
-def code_flat_sel(orig, pred, q, log2: int, intra=True, bd: int = 8):
-    """transform -> quant -> dequant -> inverse -> recon for (L, N^2) blocks."""
-    coef = ck.fwd_transform_flat(orig - pred, log2, bd=bd)
-    lev = quantize(coef, q, log2, intra, bd=bd)
-    deq = dequantize(lev, q, log2, bd=bd)
-    rec = (pred + ck.inv_transform_flat(deq, log2, bd=bd)).clamp(0, (1 << bd) - 1)
-    return lev, rec
-
-
 def _select_mode(preds, sel):
     return preds.gather(1, sel.long()[:, None, None].expand(-1, 1, preds.shape[2]))[:, 0]
 
@@ -275,15 +267,18 @@ def encode_frame_intra_fast(y, u, v, qp: int, *, width: int, height: int,
     for d in range(nw):
         fl, fa, ftr = fl_w[d], fa_w[d], ftr_w[d]
         a_y = intra_ops.substitute_refs_ctb(ring_boundary(*ry, N), fl, fa, ftr, N)
-        pred = _select_mode(ck.predict_all_modes_flat(a_y, 4, True), mode_w[d])
-        lev_y, rec_y = code_flat_sel(oy_w[d], pred, qp_w[d], 4)
+        pred_y = _select_mode(ck.predict_all_modes_flat(a_y, 4, True), mode_w[d])
+        preds_c = []
+        for ci in (0, 1):
+            a_c = intra_ops.substitute_refs_ctb(ring_boundary(*rc[ci], m), fl, fa, ftr, m)
+            preds_c.append(_select_mode(ck.predict_all_modes_flat(a_c, 3, False), mode_w[d]))
+        (lev_y, rec_y), *chroma = code_residual_wave(
+            (oy_w[d], pred_y, qp_w[d], 4), (ou_w[d], preds_c[0], qpc_w[d], 3),
+            (ov_w[d], preds_c[1], qpc_w[d], 3), True)
         ry = ring_push(ry, rec_y, N)
         lev_y_w[d] = lev_y
         rec_y_w[d] = rec_y
-        for ci, oc_w in enumerate((ou_w, ov_w)):
-            a_c = intra_ops.substitute_refs_ctb(ring_boundary(*rc[ci], m), fl, fa, ftr, m)
-            pred_c = _select_mode(ck.predict_all_modes_flat(a_c, 3, False), mode_w[d])
-            lev_c, rec_c = code_flat_sel(oc_w[d], pred_c, qpc_w[d], 3)
+        for ci, (lev_c, rec_c) in enumerate(chroma):
             rc[ci] = ring_push(rc[ci], rec_c, m)
             lev_c_w[ci, d] = lev_c
             rec_c_w[ci, d] = rec_c

@@ -1,9 +1,12 @@
-"""Hand-written Hopper kernels for quant, dequant and SATD, with their plain
-PyTorch versions.
+"""Hand-written Hopper kernels for quant, dequant, SATD and the fused
+residual chain, with their plain PyTorch versions.
 
 Counterpart of `kvazzup_tpu/ops/pallas_q.py` (the three Pallas kernels of
-the CTB16 path).  The CUDA sources are `csrc/q_kernels.cu`, built by
-`runtime.build_kernels`.
+the CTB16 path).  The CUDA sources are `csrc/q_kernels.cu` (SATD, quant,
+dequant) and `csrc/resid_kernels.cu` (`code_residual_rows` /
+`code_residual_wave`: transform, quant, dequant, inverse transform and
+reconstruction in one launch, the encoder's route to quant and dequant),
+built by `runtime.build_kernels`.
 
 Dispatch is by device only: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel (and raises if the library cannot be built or
@@ -19,9 +22,11 @@ import torch
 
 from .. import runtime
 from ..core.tables import DEQUANT_SCALES, QUANT_SCALES
+from . import ctu_kernels as ck
 from .satd import _satd_tile
 
-LAUNCHES = {"quant": 0, "dequant": 0, "satd": 0}
+LAUNCHES = {"quant": 0, "dequant": 0, "satd": 0, "residual": 0}
+RESIDUAL_MAX_SAMPLES = 384  # per row over the planes of one launch (its threads)
 
 
 def reset_launches() -> None:
@@ -74,6 +79,28 @@ def satd_rows_plain(a, b, log2: int, group: int = 1):
     bb = b.repeat_interleave(group, dim=0) if group > 1 else b
     d = (a - bb).reshape(rows, n // bs, bs, n // bs, bs).transpose(2, 3)
     return _satd_tile(d, bs).sum(dim=(1, 2)).to(torch.int32)
+
+
+def code_residual_rows_plain(orig, pred, qp, intra, log2: int, bd: int = 8,
+                            group: int = 1):
+    """Forward transform -> quant -> dequant -> inverse transform -> recon.
+
+    pred (R, N^2) int32; orig (R / group, N^2) int32 and qp (R / group,)
+    int32 pair with rows r of pred with r // group; intra is a bool for
+    every row or an (R / group,) bool tensor.  Returns (levels, recon),
+    both (R, N^2) int32."""
+    if group > 1:
+        orig, qp = orig.repeat_interleave(group, 0), qp.repeat_interleave(group)
+        if torch.is_tensor(intra):
+            intra = intra.repeat_interleave(group)
+    if torch.is_tensor(intra):
+        dz = torch.where(intra, 171, 85).to(torch.int32)
+    else:
+        dz = torch.full_like(qp, 171 if intra else 85)
+    coef = ck.fwd_transform_flat(orig - pred, log2, bd=bd)
+    lev = quantize_rows_plain(coef, qp, dz, log2, bd)
+    res = ck.inv_transform_flat(dequantize_rows_plain(lev, qp, log2, bd), log2, bd=bd)
+    return lev, (pred + res).clamp(0, (1 << bd) - 1)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -137,3 +164,89 @@ def satd_rows(a, b, log2: int, group: int = 1):
     runtime.check_launch(err, "satd")
     LAUNCHES["satd"] += 1
     return out
+
+
+def _residual_plane(orig, pred, qp, log2: int, group: int, name: str, rows=None) -> int:
+    """Check one plane's operands of the residual kernel, each once; its
+    row count (`rows` when given, else pred's)."""
+    if log2 not in (3, 4):
+        raise ValueError(f"residual {name}: log2 must be 3 or 4, got {log2}")
+    if rows is None:
+        rows = pred.shape[0] if pred.ndim else 0
+    n2 = 1 << (2 * log2)
+    runtime.check_operand(pred, f"{name} pred", 2, (rows, n2))
+    if group < 1 or rows % group:
+        raise ValueError(f"residual {name}: {rows} rows do not split into groups of {group}")
+    runtime.check_operand(orig, f"{name} orig", 2, (rows // group, n2))
+    runtime.check_operand(qp, f"{name} qp", 1, (rows // group,))
+    return rows
+
+
+def _residual_intra(intra, groups: int, bd: int):
+    """(flag tensor or None, scalar deadzone numerator) for the kernel."""
+    if bd != 8:
+        raise NotImplementedError(f"residual coding at bit depth {bd} is not ported (8 only)")
+    if isinstance(intra, bool):
+        return None, 171 if intra else 85
+    runtime.check_operand(intra, "intra", 1, (groups,), dtype=torch.bool)
+    return intra, 0
+
+
+def _launch_residual(planes, flags, group: int, dz: int):
+    """One kvz_code_residual launch over up to three planes, each (orig,
+    pred, qp, lev, rec, rows, log2)."""
+    pred = planes[0][1]
+    args = []
+    for o, p, q, lev, rec, rows, log2 in planes:
+        args += [o.data_ptr(), p.data_ptr(), q.data_ptr(), lev.data_ptr(),
+                 rec.data_ptr(), rows, log2]
+    args += [None, None, None, None, None, 0, 0] * (3 - len(planes))
+    with torch.cuda.device(pred.device):
+        err = runtime.kernel_lib().kvz_code_residual(
+            *args, None if flags is None else flags.data_ptr(), group, dz,
+            runtime.stream_ptr(pred))
+    runtime.check_launch(err, "residual")
+    LAUNCHES["residual"] += 1
+
+
+def code_residual_rows(orig, pred, qp, intra, log2: int, bd: int = 8, group: int = 1):
+    """Residual coding of one plane: (levels, recon) of (R, N^2) int32
+    predictions `pred` against `orig`, as `code_residual_rows_plain`.
+
+    qp is (R / group,) int32; intra a bool (the deadzone of every row) or an
+    (R / group,) bool tensor.  log2 is 3 or 4, bd 8."""
+    rows = _residual_plane(orig, pred, qp, log2, group, "plane")
+    flags, dz = _residual_intra(intra, rows // group, bd)
+    if not runtime.kernel_route(orig, pred, qp, *(() if flags is None else (flags,))):
+        return code_residual_rows_plain(orig, pred, qp, intra, log2, bd, group)
+    lev, rec = torch.empty_like(pred), torch.empty_like(pred)
+    _launch_residual([(orig, pred, qp, lev, rec, rows, log2)], flags, group, dz)
+    return lev, rec
+
+
+def code_residual_wave(luma, cb, cr, intra):
+    """Residual coding of a wave's three planes in one launch.
+
+    Each plane is (orig, pred, qp, log2) over the same R lanes, as for
+    `code_residual_rows` with group 1; intra (a bool or an (R,) bool
+    tensor) is shared by the planes.  Returns [(levels, recon)] per plane:
+    views of one int32 buffer."""
+    planes = (luma, cb, cr)
+    n2s = [1 << (2 * lg) for *_, lg in planes]
+    if sum(n2s) > RESIDUAL_MAX_SAMPLES:
+        raise ValueError(f"residual wave: more than {RESIDUAL_MAX_SAMPLES} samples per row")
+    rows = luma[1].shape[0] if luma[1].ndim else 0
+    for (o, p, q, lg), name in zip(planes, ("luma", "cb", "cr")):
+        _residual_plane(o, p, q, lg, 1, name, rows)
+    flags, dz = _residual_intra(intra, rows, 8)
+    tensors = [t for o, p, q, _ in planes for t in (o, p, q)]
+    if not runtime.kernel_route(*tensors, *(() if flags is None else (flags,))):
+        return [code_residual_rows_plain(o, p, q, intra, lg) for o, p, q, lg in planes]
+    buf = torch.empty(2 * rows * sum(n2s), dtype=torch.int32, device=luma[1].device).split(
+        [rows * n2 for n2 in n2s for _ in (0, 1)])
+    outs = [(buf[2 * k].view(rows, n2), buf[2 * k + 1].view(rows, n2))
+            for k, n2 in enumerate(n2s)]
+    _launch_residual([(o, p, q, lev, rec, rows, lg)
+                      for (o, p, q, lg), (lev, rec) in zip(planes, outs)],
+                     flags, 1, dz)
+    return outs

@@ -3,7 +3,9 @@
 
 Every call runs the hand kernels of `hopper_q` on a CUDA tensor, whatever
 its shape: coefficients are viewed as rows of the last dimension, with qp
-(and the intra/inter deadzone) given per row.  RDOQ is not ported.
+(and the intra/inter deadzone) given per row.  RDOQ is not ported.  The
+encoder does not call these: it quantizes inside the fused residual kernel
+(`hopper_q.code_residual_rows` / `code_residual_wave`).
 """
 
 from __future__ import annotations

@@ -30,7 +30,7 @@ torch.set_float32_matmul_precision("highest")
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-KERNEL_SOURCES = ("q_kernels.cu", "sao_kernels.cu")
+KERNEL_SOURCES = ("q_kernels.cu", "sao_kernels.cu", "resid_kernels.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -133,7 +133,9 @@ def _bind(lib):
     lib.kvz_dequant.argtypes = [p, p, p, i, i, i, i, p]
     lib.kvz_satd.argtypes = [p, p, p, i, i, i, p]
     lib.kvz_sao_apply.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    for fn in (lib.kvz_quant, lib.kvz_dequant, lib.kvz_satd, lib.kvz_sao_apply):
+    lib.kvz_code_residual.argtypes = [p, p, p, p, p, i, i] * 3 + [p, i, i, p]
+    for fn in (lib.kvz_quant, lib.kvz_dequant, lib.kvz_satd, lib.kvz_sao_apply,
+               lib.kvz_code_residual):
         fn.restype = ctypes.c_int
     return lib
 
@@ -141,6 +143,8 @@ def _bind(lib):
 def kernel_lib():
     """The loaded kernel library (built on first call)."""
     global _LIB
+    if _LIB is not None:  # every launch passes here: no lock once loaded
+        return _LIB
     with _LOCK:
         if _LIB is None:
             _LIB = _bind(ctypes.CDLL(build_kernels()))

@@ -31,7 +31,8 @@ def test_wrappers_take_plain_path_on_cpu():
     thq.quantize_rows(c, q, dz, 3)
     thq.dequantize_rows(c, q, 3)
     thq.satd_rows(c, c.flip(0).contiguous(), 3)
-    assert thq.LAUNCHES == {"quant": 0, "dequant": 0, "satd": 0}
+    thq.code_residual_rows(c, c.flip(0).contiguous(), q, True, 3)
+    assert thq.LAUNCHES == {"quant": 0, "dequant": 0, "satd": 0, "residual": 0}
     with pytest.raises(TypeError):
         thq.quantize_rows(c.to(torch.int64), q, dz, 3)
     with pytest.raises(ValueError):

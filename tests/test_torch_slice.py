@@ -92,7 +92,7 @@ def test_snapshot_restore_from_jax(runs, frames):
 def test_cpu_encode_launches_no_kernel(frames):
     hopper_q.reset_launches()
     Encoder(_cfg(), intra_period=64, device="cpu").encode_frame(*frames[0])
-    assert hopper_q.LAUNCHES == {"quant": 0, "dequant": 0, "satd": 0}
+    assert hopper_q.LAUNCHES == {"quant": 0, "dequant": 0, "satd": 0, "residual": 0}
 
 
 @pytest.mark.parametrize("kw", [dict(slices=2), dict(cu_qp_delta=True),

@@ -10,7 +10,8 @@ frame of `synthetic_frames(W, H, 3, seed=12)`:
     frame);
   * profiles the whole device stage with torch.profiler, and the SAO stage
     alone, and reports the kernel count, summed kernel time, device busy
-    share of the wall time and the top kernels by device time.
+    share of the wall time, the top kernels by device time, and the launches
+    and device time of each hand-written kernel (`csrc/*.cu`).
 Needs a CUDA device; prints one JSON line last.
 """
 
@@ -19,6 +20,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 import time
 
@@ -37,6 +39,10 @@ from kvazzup_tpu_torch.ops.me import motion_search  # noqa: E402
 from kvazzup_tpu_torch.ops.sao import (sao_apply, sao_decide, sao_decide_chroma,  # noqa: E402
                                        sao_lambda)
 
+# the __global__ functions of csrc/*.cu
+HAND_KERNELS = ("satd_kernel", "quant_kernel", "dequant_kernel", "code_residual_kernel",
+                "sao_apply_kernel")
+
 
 def timed(fn):
     torch.cuda.synchronize()
@@ -47,8 +53,9 @@ def timed(fn):
 
 
 def device_profile(fn):
-    """(wall ms, device event count, summed device ms, top events) of fn();
-    device events are kernels and copies."""
+    """(wall ms, device event count, summed device ms, top events, hand
+    kernels' (launches, device ms)) of fn(); device events are kernels and
+    copies."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -62,7 +69,15 @@ def device_profile(fn):
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    return wall, len(kernels), busy, [(k[:70], n, round(t, 3)) for k, (n, t) in top]
+    hand: dict = {}
+    for name, (n, t) in by_name.items():
+        # demangled or mangled names; "quant_kernel" must not match "dequant_kernel"
+        k = next((k for k in HAND_KERNELS if re.search(rf"(?<![a-z_]){k}", name)), None)
+        if k:
+            c, u = hand.get(k, (0, 0.0))
+            hand[k] = (c + n, u + t)
+    return (wall, len(kernels), busy, [(k[:70], n, round(t, 3)) for k, (n, t) in top],
+            hand)
 
 
 def main(argv=None) -> int:
@@ -126,13 +141,16 @@ def main(argv=None) -> int:
     for kind, fn in (("idr", lambda: enc.encode_frame_device(*raw[0])),
                      ("p", lambda: enc.encode_frame_device(*raw[1])),
                      ("sao_stage", sao_stage)):
-        wall, n, busy, top = device_profile(fn)
+        wall, n, busy, top, hand = device_profile(fn)
         prof[kind] = {"wall_ms": wall, "kernels": n, "kernel_ms": busy,
-                      "busy_share": busy / wall, "top": top}
+                      "busy_share": busy / wall, "top": top, "hand_kernels": hand}
         print(f"{kind}: wall {wall:.1f} ms, {n} kernels, kernel time {busy:.1f} ms, "
               f"busy {100 * busy / wall:.1f}%", flush=True)
         for name, cnt, t in top:
             print(f"   {t:9.3f} ms {cnt:7d}x  {name}", flush=True)
+        for name, (cnt, t) in sorted(hand.items()):
+            print(f"   hand kernel {name}: {cnt} launches, {t:.4f} ms device, "
+                  f"{t / cnt:.5f} ms each", flush=True)
     print(json.dumps({"card": torch.cuda.get_device_name(0), "stages_ms": stages,
                       "profile": prof}), flush=True)
     return 0
