@@ -6,9 +6,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card's name and power limit (nvidia-smi), then the CUDA kernel build
      (one nvcc per source, in parallel);
   2. each hand kernel (SATD, quant, dequant, the fused residual coding, SAO
-     apply) against its plain PyTorch version on the card at the 1080p
-     main-path shapes, element-identical (tolerance 0), plus first-index
-     tie-breaking of argmin / stable sort;
+     apply, the P wave's merge search) against its plain PyTorch version on
+     the card at the 1080p main-path shapes (SATD also at 4x4, 8x8 and
+     32x32 blocks; the merge search at 1, 3 and 5 candidates with MVs that
+     leave the window and tied costs; SAO over three planes in one launch
+     and one plane at a time), element-identical (tolerance 0; float32
+     outputs bit for bit), plus first-index tie-breaking of argmin / stable
+     sort;
   3. two 1920x1080 IDR + 3 P encodes of synthetic_frames(1920, 1080, 4,
      seed=12) at QP 32 through `Encoder` on cuda: the CLI defaults, then
      `--sao` (SAO + WPP).  Each is held against its JAX golden
@@ -17,13 +21,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      per-frame device and entropy times and the launch count of every
      kernel, counted from 0 over that encode alone (every kernel the path
      runs must launch; the residual kernel once per wave and once per IDR
-     mode prepass, quant and dequant never: the encoder reaches them only
-     through the residual kernel; SAO at least 3 times a frame);
+     mode prepass, the merge search once per P wave, SATD once per IDR
+     frame and twice per P frame, SAO once per frame with --sao and never
+     without, quant and dequant never: the encoder reaches them only
+     through the residual kernel);
   4. kernel vs plain times at the main-path shapes (CUDA events around 20
-     calls, the least of 5 runs), beside
-     each kernel's bound (bytes moved over 3.35 TB/s, operations over 67
-     Tops/s, the larger; every input read once, every output written
-     once).
+     calls, the least of 5 runs: at the wave shapes this is the wrapper's
+     host path per call), the kernel's own device time per call
+     (torch.profiler, mean of 20 calls), beside each kernel's bound (bytes
+     moved over 3.35 TB/s, operations over 67 Tops/s, the larger; every
+     input read once, every output written once).
 The next-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -34,18 +41,21 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from kvazzup_tpu_torch import runtime
 from kvazzup_tpu_torch.encoder.top import Encoder
 from kvazzup_tpu_torch.encoder.wavefront import schedule_r
 from kvazzup_tpu_torch.inputs import stream_config, synthetic_frames
-from kvazzup_tpu_torch.ops import hopper_q, sao
+from kvazzup_tpu_torch.ops import hopper_q, merge, sao
+from kvazzup_tpu_torch.ops.mc import sheared_ref_strips, strip_window_slice
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(ROOT, "kvazzup_tpu_torch", "golden")
@@ -54,14 +64,22 @@ SOURCE = {"satd": "kvazzup_tpu_torch/csrc/q_kernels.cu",
           "quant": "kvazzup_tpu_torch/csrc/q_kernels.cu",
           "dequant": "kvazzup_tpu_torch/csrc/q_kernels.cu",
           "residual": "kvazzup_tpu_torch/csrc/resid_kernels.cu",
-          "sao": "kvazzup_tpu_torch/csrc/sao_kernels.cu"}
+          "sao": "kvazzup_tpu_torch/csrc/sao_kernels.cu",
+          "merge": "kvazzup_tpu_torch/csrc/merge_kernels.cu"}
 REPLACES = {"satd": "kvazzup_tpu/ops/pallas_q.py:85",
             "quant": "kvazzup_tpu/ops/pallas_q.py:56",
             "dequant": "kvazzup_tpu/ops/pallas_q.py:70",
             # fuses the quant (:56) and dequant (:70) kernels with the transforms
             "residual": "kvazzup_tpu/ops/pallas_q.py:56",
-            "sao": "kvazzup_tpu/ops/sao.py:185"}
+            "sao": "kvazzup_tpu/ops/sao.py:185",
+            # fuses the SATD kernel (:85) with the merge block's luma MC, cost
+            # and argmin (kvazzup_tpu/encoder/frame_inter.py:471-490)
+            "merge": "kvazzup_tpu/ops/pallas_q.py:85"}
 KERNELS = tuple(REPLACES)
+# each kernel's __global__ function, as the profiler names it
+KERNEL_FN = {"satd": "satd_kernel", "quant": "quant_kernel", "dequant": "dequant_kernel",
+             "residual": "code_residual_kernel", "sao": "sao_apply_kernel",
+             "merge": "merge_search_kernel"}
 NCTU, LANES = 8160, 68  # 1920x1088 at CTB16: 120 x 68 CTUs, 68 lanes per wave
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # integer and float32 arithmetic outside the tensor cores: the card's float32
@@ -71,9 +89,12 @@ OPS_PER_S = 67e12
 # for SAO), counted from each kernel's source; for the residual kernel per
 # sample of a block of N x N by log2 N: four transform stages of N
 # multiply-adds (8 N) and 43 more (the residual, 4 rounding shifts, quant 16,
-# dequant 11, 4 clips, the recon)
+# dequant 11, 4 clips, the recon); for the merge search per candidate and
+# lane: 23 x 16 horizontal sums of 8 multiply-adds, 256 vertical ones, 4
+# per sample for the shift, rounding and clip, the SATD's 9 per sample
 OPS_PER_ELEM = {"satd": 9, "quant": 7, "dequant": 5, "sao": 12,
-                "residual": {3: 8 * 8 + 43, 4: 8 * 16 + 43}}
+                "residual": {3: 8 * 8 + 43, 4: 8 * 16 + 43},
+                "merge": 23 * 16 * 16 + 256 * 16 + 256 * 4 + 256 * 9}
 
 
 def log(msg: str) -> None:
@@ -104,13 +125,34 @@ def cuda_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return best
 
 
+def device_ms(name: str, fn, iters: int = 20):
+    """The device time per call of fn's hand kernel: the profiler's CUDA
+    events of its __global__ function over `iters` calls, summed, over
+    `iters`; None if two traces in a row saw none."""
+    # "quant_kernel" must not match "dequant_kernel"
+    pat = re.compile(rf"(?<![a-z_]){KERNEL_FN[name]}")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):  # a short trace has come back without its kernels: once more
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and pat.search(e.name)]
+        if us:
+            return sum(us) / 1e3 / iters
+    return None
+
+
 def launches() -> dict:
-    return {**hopper_q.LAUNCHES, **sao.LAUNCHES}
+    return {**hopper_q.LAUNCHES, **sao.LAUNCHES, **merge.LAUNCHES}
 
 
 def reset_launches() -> None:
     hopper_q.reset_launches()
     sao.reset_launches()
+    merge.reset_launches()
 
 
 def kernel_cases(dev):
@@ -152,6 +194,12 @@ def kernel_cases(dev):
     aw, bw = pix(LANES, 256), pix(LANES, 256)
     add("satd", "wave (68,256)", lambda: hopper_q.satd_rows(aw, bw, 4),
         lambda: hopper_q.satd_rows_plain(aw, bw, 4), (aw, bw))
+    # the other block sizes over the same frame: 4x4, 8x8 and 32x32 blocks
+    for log2, rows in ((2, NCTU * 16), (3, NCTU * 4), (5, NCTU // 4)):
+        al, bl = pix(rows, 1 << 2 * log2), pix(rows, 1 << 2 * log2)
+        add("satd", f"{1 << log2}x{1 << log2} ({rows},{1 << 2 * log2})",
+            lambda al=al, bl=bl, lg=log2: hopper_q.satd_rows(al, bl, lg),
+            lambda al=al, bl=bl, lg=log2: hopper_q.satd_rows_plain(al, bl, lg), (al, bl))
     for rows, k, log2, label in ((NCTU * 3, 256, 4, "prepass (8160*3,256)"),
                                  (LANES, 256, 4, "wave luma (68,256)"),
                                  (LANES, 64, 3, "wave chroma (68,64)")):
@@ -185,9 +233,11 @@ def kernel_cases(dev):
                   [x for o, p, q, _ in wave for x in (o, p, q)] + [intra],
                   sum(res_ops[lg] * p.numel() for _, p, _, lg in wave)))
     # SAO apply: luma 1088x1920 at ctb 16, chroma 544x960 at ctb 8; random
-    # parameters covering off, band offset and all four edge classes
-    for h, w, ctb, label in ((1088, 1920, 16, "luma (1088,1920) ctb16"),
-                             (544, 960, 8, "chroma (544,960) ctb8")):
+    # parameters covering off, band offset and all four edge classes; the
+    # frame's three planes in one launch (the encoder's call), then one
+    # plane a launch
+    planes = []
+    for h, w, ctb in ((1088, 1920, 16), (544, 960, 8), (544, 960, 8)):
         cbh, cbw = h // ctb, w // ctb
         rec = t(rng.integers(0, 256, (h, w)).astype(np.uint8))
         typ_np = rng.integers(0, 3, (cbh, cbw)).astype(np.int32)
@@ -197,12 +247,55 @@ def kernel_cases(dev):
             assert (typ_np == v).any(), "SAO case misses a type"
         for k in range(4):
             assert ((typ_np == 2) & (aux_np == k)).any(), "SAO case misses an edge class"
-        typ, aux = t(typ_np), t(aux_np)
         offs = t(rng.integers(-7, 8, (cbh, cbw, 4)).astype(np.int32))
+        planes.append((rec, t(typ_np), t(aux_np), offs, ctb))
+    cases.append(("sao", "frame: 3 planes, one launch", lambda: sao.sao_apply_planes(planes),
+                  lambda: [sao.sao_apply_plain(*p[:4], ctb=p[4]) for p in planes],
+                  [x for p in planes for x in p[:4]],
+                  OPS_PER_ELEM["sao"] * sum(p[0].numel() for p in planes)))
+    for (rec, typ, aux, offs, ctb), label in zip(planes[:2], ("luma (1088,1920) ctb16",
+                                                            "chroma (544,960) ctb8")):
         add("sao", label,
             lambda r=rec, a=typ, b=aux, o=offs, c=ctb: sao.sao_apply(r, a, b, o, ctb=c),
             lambda r=rec, a=typ, b=aux, o=offs, c=ctb: sao.sao_apply_plain(r, a, b, o, ctb=c),
             (rec, typ, aux, offs))
+    cases += merge_cases(dev, rng)
+    return cases
+
+
+def merge_cases(dev, rng):
+    """The P wave's merge search over a 1080p frame's luma strips (68 lanes,
+    254 waves): 1, 3 and 5 candidates at three waves where most lanes hold
+    a CTU, with every quarter-pel phase pair, MVs of -16 3/4 px (the filter reads
+    outside the window), random ones far outside, equal last candidates,
+    and lambda 0 in every fourth lane (tied costs)."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    ch, nw = 68, 254
+    ref = t(rng.integers(0, 256, (1088 + 48, 1920 + 48)).astype(np.uint8))
+    strips = sheared_ref_strips(ref, 16, 16, ch, 24)
+    oy_w = t(rng.integers(0, 256, (nw, LANES, 256)).astype(np.int32))
+    lam_np = (rng.random((nw, LANES)) * 150).astype(np.float32)
+    lam_np[:, ::4] = 0.0
+    lam_w = t(lam_np)
+    cases = []
+    for k_cands, d in ((1, 130), (3, 90), (5, 170)):
+        ms = merge.MergeSearch(strips, oy_w, lam_w, k_cands)
+        mvs = rng.integers(-80, 81, (k_cands, LANES, 2)).astype(np.int32)
+        mvs[0, :, 0] = 4 * rng.integers(-17, 17, LANES) + np.arange(LANES) % 4
+        mvs[0, :, 1] = 4 * rng.integers(-17, 17, LANES) + np.arange(LANES) // 4 % 4
+        mvs[0, :8] = (-67, -66)
+        if k_cands > 2:
+            mvs[-2] = mvs[-1]
+        cands = [t(m) for m in mvs]
+        winy = strip_window_slice(strips, d, 16, 16)
+        cases.append(("merge", f"K={k_cands} wave {d} (68 lanes)",
+                      lambda ms=ms, d=d, c=cands: ms.wave(d, c),
+                      lambda w=winy, d=d, c=cands: merge.merge_search_plain(
+                          w, c, oy_w[d], lam_w[d], 16, 16),
+                      [winy, torch.stack(cands), oy_w[d], lam_w[d]],
+                      OPS_PER_ELEM["merge"] * k_cands * LANES))
     return cases
 
 
@@ -223,6 +316,12 @@ def bound(operands, out, n_ops) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bits(x):
+    """x as int64 for an exact comparison: integers by value, float32 by
+    its bit pattern (so 0 means bit-identical)."""
+    return (x.view(torch.int32) if x.dtype == torch.float32 else x).to(torch.int64)
+
+
 def check_kernels(cases) -> dict:
     """Kernel == plain on every case; returns max abs error per kernel."""
     err = {}
@@ -232,8 +331,7 @@ def check_kernels(cases) -> dict:
         if [(g.shape, g.dtype) for g in got] != [(w.shape, w.dtype) for w in want]:
             raise AssertionError(f"{name} {label}: {[(g.shape, g.dtype) for g in got]} vs "
                                  f"{[(w.shape, w.dtype) for w in want]}")
-        e = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                for g, w in zip(got, want))
+        e = max(int((bits(g) - bits(w)).abs().max()) for g, w in zip(got, want))
         log(f"  {name:8s} {label:30s} max_abs_err={e} (tolerance 0)")
         if e != 0:
             raise AssertionError(f"{name} {label}: kernel disagrees with plain version")
@@ -306,20 +404,23 @@ def encode_1080p(dev, golden) -> tuple[list, dict]:
         raise AssertionError(f"1080p stream or recon differs from the JAX golden in frames {bad}")
     if rows[0]["recon_shape"] != [[h, w], [h // 2, w // 2], [h // 2, w // 2]]:
         raise AssertionError(f"unexpected recon shape {rows[0]['recon_shape']}")
-    path_kernels = ("satd", "residual") + (("sao",) if with_sao else ())
+    path_kernels = ("satd", "residual", "merge") + (("sao",) if with_sao else ())
     zero = [k for k in path_kernels if counts[k] <= 0]
     if zero:
         raise AssertionError(f"kernels never launched on the main path: {zero}")
-    # one residual launch per wave of every frame, one more per IDR prepass
+    # per encode: the residual kernel once per wave of every frame and once
+    # per IDR prepass; the merge search once per P wave; SATD for the IDR
+    # mode prepass, and for each P frame's ME cost and intra cost prepass;
+    # SAO once per frame with --sao; quant and dequant never
     n_waves = schedule_r(cfg.ctbs_w, cfg.ctbs_h)["n_waves"]
-    want = sum(n_waves + (r["kind"] == "idr") for r in rows)
-    if counts["residual"] != want:
-        raise AssertionError(f"residual launched {counts['residual']} times, expected {want}")
-    if counts["quant"] or counts["dequant"]:
-        raise AssertionError(f"quant / dequant launched on the main path: {counts}")
-    if with_sao and counts["sao"] < 3 * nf:
-        raise AssertionError(f"SAO launched {counts['sao']} times in {nf} frames, "
-                             f"expected 3 a frame")
+    n_idr = sum(r["kind"] == "idr" for r in rows)
+    want = {"residual": len(rows) * n_waves + n_idr,
+            "merge": (len(rows) - n_idr) * n_waves,
+            "satd": n_idr + 2 * (len(rows) - n_idr),
+            "sao": len(rows) if with_sao else 0, "quant": 0, "dequant": 0}
+    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if bad:
+        raise AssertionError(f"launches per encode (got, expected): {bad}")
     return rows, counts
 
 
@@ -354,18 +455,22 @@ def main() -> int:
         for k in KERNELS:
             total[k] += counts[k]
 
-    log("phase 4: kernel vs plain times (CUDA events, mean of 20 calls, least of 5 runs)")
+    log("phase 4: kernel vs plain times (CUDA events, mean of 20 calls, least of 5 runs; "
+        "device: profiler, mean of 20 calls)")
     times = {}
     for name, label, kfn, pfn, operands, n_ops in cases:
         km, pm = cuda_ms(kfn), cuda_ms(pfn)
+        dm = device_ms(name, kfn)
         bms, by = bound(operands, kfn(), n_ops)
-        log(f"  {name:8s} {label:30s} kernel {km:.4f} ms  plain {pm:.4f} ms  "
-            f"bound {bms:.4f} ms ({by})")
-        times.setdefault(name, (km, pm, bms, by))  # first case = the largest shape
+        dev_txt = "not measured" if dm is None else f"{dm:.4f} ms"
+        log(f"  {name:8s} {label:30s} kernel {km:.4f} ms  device {dev_txt}  "
+            f"plain {pm:.4f} ms  bound {bms:.4f} ms ({by})")
+        # the first case of each kernel stands for it in the kernels line
+        times.setdefault(name, (km, pm, bms, by, dm))
     kernels = [{"name": n, "route": "cuda", "source": SOURCE[n], "replaces": REPLACES[n],
                 "launches": total[n], "max_abs_err": errs[n], "ms": times[n][0],
                 "plain_ms": times[n][1], "bound_ms": times[n][2], "bound_by": times[n][3],
-                "library_ms": None}
+                "library_ms": None, "device_ms": times[n][4]}
                for n in KERNELS]
     log(json.dumps({"frames": frames}))
     print(card, flush=True)

@@ -22,16 +22,22 @@
 // kvz_satd replaces pallas_q.py `_satd_kernel` (wrapper `satd_2d`).  The
 // Pallas kernel multiplies the difference by a (K, K) f32 Kronecker
 // Hadamard matrix and sums subblocks with a 0/1 selector matmul, because
-// the TPU's matrix unit was the cheap resource.  Here each thread owns one
-// 8x8 (or 4x4) subblock of one row and runs the Hadamard butterflies in
-// int32 registers: exact by construction, no weights moved.  The row's
-// subblock sums are combined with warp shuffles.  Bound: bytes; the 1080p
-// P-frame ME cost reads 2 x 8160 x 256 x 4 B = 16.7 MB per call.  The
-// intra-sweep form broadcasts the original block over the 35 predictions
-// (b row = a row / group), so it reads a once and b 35x less.
+// the TPU's matrix unit was the cheap resource.  Here the butterflies run
+// in int32 registers and across lanes (csrc/satd_warp.cuh): exact by
+// construction, no weights moved.  Bound: bytes; the 1080p P-frame ME cost
+// reads 2 x 8160 x 256 x 4 B = 16.7 MB per call.  Design for that bound:
+// the lanes of a warp hold consecutive 8-sample chunks of a row, so a 16x16
+// row is one contiguous 1 KB warp load of 16-byte vectors (two per operand
+// and lane); the vertical butterfly is three shuffle stages; one warp per
+// 16x16 or 32x32 row, several 4x4 / 8x8 rows per warp, 8 warps per CTA, so
+// the ME call has 1020 CTAs for 132 SMs.  The intra-sweep form broadcasts
+// the original block over the 35 predictions (b row = a row / group), so
+// it reads a once and b 35x less.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "satd_warp.cuh"
 
 __constant__ int kQuantScales[6] = {26214, 23302, 20560, 18396, 16384, 14564};
 __constant__ int kDequantScales[6] = {40, 45, 51, 57, 64, 72};
@@ -76,69 +82,28 @@ __global__ void dequant_kernel(const int* __restrict__ lev,
   out[i] = min(max(d, -32768), 32767);
 }
 
-// In-place Walsh-Hadamard butterfly over B values spaced `stride` apart.
-template <int B>
-__device__ __forceinline__ void butterfly(int* v, int stride) {
-#pragma unroll
-  for (int h = 1; h < B; h <<= 1) {
-#pragma unroll
-    for (int i = 0; i < B; i += 2 * h) {
-#pragma unroll
-      for (int j = i; j < i + h; ++j) {
-        int a = v[j * stride], b = v[(j + h) * stride];
-        v[j * stride] = a + b;
-        v[(j + h) * stride] = a - b;
-      }
-    }
-  }
-}
-
-// One thread per (row, B x B subblock); NSB subblocks per row, a power of
-// two <= 16, so a row's threads sit in one warp.
-template <int B, int NSB>
+// One warp per SatdGeom<B, N>::RW rows; 8 warps per CTA.
+template <int B, int N>
 __global__ void satd_kernel(const int* __restrict__ a,
                             const int* __restrict__ b,
-                            int* __restrict__ out, int rows, int group,
-                            int n) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long row = t / NSB;
-  int sb = (int)(t % NSB);
+                            int* __restrict__ out, int rows, int group) {
+  using G = kvz::SatdGeom<B, N>;
+  int lane = threadIdx.x & 31;
+  long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  long long row = warp * G::RW + lane / G::LR;
   bool live = row < rows;
-  int total = 0;
-  if (live) {
-    int per_side = n / B;
-    int y0 = (sb / per_side) * B, x0 = (sb % per_side) * B;
-    const int* pa = a + row * (long long)n * n + y0 * n + x0;
-    const int* pb = b + (row / group) * (long long)n * n + y0 * n + x0;
-    int d[B * B];
-#pragma unroll
-    for (int y = 0; y < B; ++y) {
-#pragma unroll
-      for (int x = 0; x < B; ++x) d[y * B + x] = __ldg(pa + y * n + x) - __ldg(pb + y * n + x);
-    }
-#pragma unroll
-    for (int y = 0; y < B; ++y) butterfly<B>(d + y * B, 1);
-#pragma unroll
-    for (int x = 0; x < B; ++x) butterfly<B>(d + x, B);
-    int s = 0;
-#pragma unroll
-    for (int i = 0; i < B * B; ++i) s += abs(d[i]);
-    total = B == 8 ? (s + 2) >> 2 : (s + 1) >> 1;
-  }
-  // Sum the NSB subblocks of the row (lanes are contiguous within a warp).
-#pragma unroll
-  for (int off = NSB / 2; off > 0; off >>= 1)
-    total += __shfl_xor_sync(0xffffffffu, total, off, NSB);
-  if (live && sb == 0) out[row] = total;
+  long long r = live ? row : 0;
+  int total = kvz::satd_row<B, N>(a + r * (N * N), b + (r / group) * (N * N), lane, live);
+  if (live && lane % G::LR == 0) out[row] = total;
 }
 
-template <int B, int NSB>
+template <int B, int N>
 cudaError_t launch_satd(const int* a, const int* b, int* out, int rows,
-                        int group, int n, cudaStream_t stream) {
+                        int group, cudaStream_t stream) {
   const int threads = 256;
-  long long work = (long long)rows * NSB;
-  unsigned blocks = (unsigned)((work + threads - 1) / threads);
-  satd_kernel<B, NSB><<<blocks, threads, 0, stream>>>(a, b, out, rows, group, n);
+  const int rows_per_cta = (threads / 32) * kvz::SatdGeom<B, N>::RW;
+  unsigned blocks = (unsigned)((rows + rows_per_cta - 1) / rows_per_cta);
+  satd_kernel<B, N><<<blocks, threads, 0, stream>>>(a, b, out, rows, group);
   return cudaGetLastError();
 }
 
@@ -169,19 +134,21 @@ int kvz_dequant(const void* lev, const void* qp, void* out, int rows, int k,
   return (int)cudaGetLastError();
 }
 
-// a: (rows, n*n) int32; b: (rows / group, n*n) int32; out: (rows,) int32.
+// a: (rows, n*n) int32; b: (rows / group, n*n) int32; out: (rows,) int32;
+// a and b 16-byte aligned (vector loads).
 int kvz_satd(const void* a, const void* b, void* out, int rows, int group,
              int log2, void* stream) {
   if (rows == 0) return 0;
+  if (((uintptr_t)a | (uintptr_t)b) & 15) return (int)cudaErrorMisalignedAddress;
   const int* pa = (const int*)a;
   const int* pb = (const int*)b;
   int* po = (int*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (log2) {
-    case 2: return (int)launch_satd<4, 1>(pa, pb, po, rows, group, 4, s);
-    case 3: return (int)launch_satd<8, 1>(pa, pb, po, rows, group, 8, s);
-    case 4: return (int)launch_satd<8, 4>(pa, pb, po, rows, group, 16, s);
-    case 5: return (int)launch_satd<8, 16>(pa, pb, po, rows, group, 32, s);
+    case 2: return (int)launch_satd<4, 4>(pa, pb, po, rows, group, s);
+    case 3: return (int)launch_satd<8, 8>(pa, pb, po, rows, group, s);
+    case 4: return (int)launch_satd<8, 16>(pa, pb, po, rows, group, s);
+    case 5: return (int)launch_satd<8, 32>(pa, pb, po, rows, group, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

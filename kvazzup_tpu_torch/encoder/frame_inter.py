@@ -22,6 +22,7 @@ from ..ops.costs import bits_of, fma
 from ..ops.mc import (edge_pad, extract_mc_neighborhoods, mc_chroma_window_batch,
                       mc_luma_window_batch, sheared_ref_strips, strip_window_slice)
 from ..ops.hopper_q import code_residual_wave
+from ..ops.merge import MergeSearch
 from ..ops.me import motion_search
 from .frame_intra import (LAMBDA_X1K, N, P_PREPASS_MODES, _shift_lanes, from_blocks,
                           frame_setup, intra_cost_prepass, ring0, ring_boundary,
@@ -134,7 +135,6 @@ def encode_frame_p_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int,
         "mv": torch.empty((nw, lanes, 2), dtype=torch.int32, device=dev),
         "mvp_flag": torch.empty((nw, lanes), dtype=torch.int32, device=dev),
         "mvd": torch.empty((nw, lanes, 2), dtype=torch.int32, device=dev),
-        "merge_idx": torch.empty((nw, lanes), dtype=torch.int32, device=dev),
         "lev_y": torch.empty((nw, lanes, n * n), dtype=torch.int16, device=dev),
         "lev_cb": torch.empty((nw, lanes, m * m), dtype=torch.int16, device=dev),
         "lev_cr": torch.empty((nw, lanes, m * m), dtype=torch.int16, device=dev),
@@ -148,11 +148,12 @@ def encode_frame_p_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int,
     mv_ring = torch.zeros((3, lanes, 2), dtype=torch.int32, device=dev)
     if_ring = torch.zeros((3, lanes), dtype=torch.bool, device=dev)
     K = merge_cand
+    merge = MergeSearch(strips_y, oy_w, lam_w, K, n, SEARCH_RANGE)
+    outs["merge_idx"] = merge.merge_idx
     for d in range(nw):
         fl, fa, ftr = fl_w[d], fa_w[d], ftr_w[d]
         lamf = lam_w[d]
         oyw = oy_w[d]
-        winy = strip_window_slice(strips_y, d, n, SEARCH_RANGE)
         winc = (strip_window_slice(strips_u, d, m, SEARCH_RANGE, chroma=True),
                 strip_window_slice(strips_v, d, m, SEARCH_RANGE, chroma=True))
 
@@ -169,21 +170,8 @@ def encode_frame_p_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int,
         mvp0, mvp1 = amvp_list(v_a1, mv_l, b_avail, b_mv)
         cands = _merge_candidates(K, v_a1, v_b1, v_b0, v_b2, mv_l, mv_a, mv_ar, mv_al)
 
-        # every merge candidate, merge_idx bits in the cost
-        preds_m, costs_m = [], []
-        for k in range(K):
-            idx_bits = float(min(k + 1, K - 1)) if K > 1 else 0.0
-            pk = mc_luma_window_batch(winy, cands[k], n, SEARCH_RANGE).reshape(lanes, -1)
-            satd_k = ck.satd_flat(pk, oyw, 4).to(torch.float32)
-            costs_m.append(fma(lamf, 2.0 + idx_bits, satd_k))
-            preds_m.append(pk)
-        costs_s = torch.stack(costs_m)  # (K, lanes)
-        merge_idx = costs_s.argmin(dim=0)
-        cost_merge = costs_s.gather(0, merge_idx[None])[0]
-        merge_mv = torch.stack(cands).gather(
-            0, merge_idx[None, :, None].expand(1, lanes, 2))[0]
-        pm_flat = torch.stack(preds_m).gather(
-            0, merge_idx[None, :, None].expand(1, lanes, n * n))[0]
+        # every merge candidate, merge_idx bits in the cost: one launch
+        _, cost_merge, merge_mv, pm_flat = merge.wave(d, cands)
         memv = memv_w[d]
         mvd0 = memv - mvp0
         mvd1 = memv - mvp1
@@ -231,7 +219,6 @@ def encode_frame_p_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int,
         outs["mv"][d] = mv_sel
         outs["mvp_flag"][d] = use_mvp1.to(torch.int32)
         outs["mvd"][d] = mvd
-        outs["merge_idx"][d] = merge_idx
         outs["lev_y"][d] = lev_y
         outs["lev_cb"][d] = levs_c[0]
         outs["lev_cr"][d] = levs_c[1]

@@ -23,7 +23,7 @@ from ..entropy.slice_data import (SaoState, encode_slice_data_intra,
                                   encode_slice_data_intra_wpp, encode_slice_data_p,
                                   encode_slice_data_p_wpp)
 from ..ops.deblock import compute_bs, deblock_frame
-from ..ops.sao import sao_apply, sao_decide, sao_decide_chroma, sao_lambda
+from ..ops.sao import sao_apply_planes, sao_decide, sao_decide_chroma, sao_lambda
 from .frame_inter import encode_frame_p_fast
 from .frame_intra import encode_frame_intra_fast
 
@@ -164,9 +164,10 @@ class Encoder:
             u, ru, v, rv, lam, ctb=ctb // 2)
         params = (torch.stack([t_l, t_c, t_c]), torch.stack([aux_l, aux_cb, aux_cr]),
                   torch.stack([off_l, off_cb, off_cr]))
-        ry = sao_apply(ry.contiguous(), t_l, aux_l, off_l, ctb=ctb)
-        ru = sao_apply(ru.contiguous(), t_c, aux_cb, off_cb, ctb=ctb // 2)
-        rv = sao_apply(rv.contiguous(), t_c, aux_cr, off_cr, ctb=ctb // 2)
+        ry, ru, rv = sao_apply_planes([
+            (ry.contiguous(), t_l, aux_l, off_l, ctb),
+            (ru.contiguous(), t_c, aux_cb, off_cb, ctb // 2),
+            (rv.contiguous(), t_c, aux_cr, off_cr, ctb // 2)])
         return ry, ru, rv, params
 
     def encode_frame_entropy(self, ctx):

@@ -116,7 +116,7 @@ def quantize_rows(coef, qp, dz, log2: int, bd: int = 8):
     if not runtime.kernel_route(coef, qp, dz):
         return quantize_rows_plain(coef, qp, dz, log2, bd)
     out = torch.empty_like(coef)
-    with torch.cuda.device(coef.device):
+    with runtime.on_device(coef):
         err = runtime.kernel_lib().kvz_quant(
             coef.data_ptr(), qp.data_ptr(), dz.data_ptr(), out.data_ptr(),
             rows, k, log2, bd, runtime.stream_ptr(coef))
@@ -133,7 +133,7 @@ def dequantize_rows(lev, qp, log2: int, bd: int = 8):
     if not runtime.kernel_route(lev, qp):
         return dequantize_rows_plain(lev, qp, log2, bd)
     out = torch.empty_like(lev)
-    with torch.cuda.device(lev.device):
+    with runtime.on_device(lev):
         err = runtime.kernel_lib().kvz_dequant(
             lev.data_ptr(), qp.data_ptr(), out.data_ptr(), rows, k, log2, bd,
             runtime.stream_ptr(lev))
@@ -156,8 +156,10 @@ def satd_rows(a, b, log2: int, group: int = 1):
     runtime.check_operand(b, "b", 2, (rows // group, n2))
     if not runtime.kernel_route(a, b):
         return satd_rows_plain(a, b, log2, group)
+    if (a.data_ptr() | b.data_ptr()) % 16:
+        raise ValueError("satd: the kernel's vector loads need 16-byte aligned operands")
     out = torch.empty((rows,), dtype=torch.int32, device=a.device)
-    with torch.cuda.device(a.device):
+    with runtime.on_device(a):
         err = runtime.kernel_lib().kvz_satd(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), rows, group, log2,
             runtime.stream_ptr(a))
@@ -201,7 +203,7 @@ def _launch_residual(planes, flags, group: int, dz: int):
         args += [o.data_ptr(), p.data_ptr(), q.data_ptr(), lev.data_ptr(),
                  rec.data_ptr(), rows, log2]
     args += [None, None, None, None, None, 0, 0] * (3 - len(planes))
-    with torch.cuda.device(pred.device):
+    with runtime.on_device(pred):
         err = runtime.kernel_lib().kvz_code_residual(
             *args, None if flags is None else flags.data_ptr(), group, dz,
             runtime.stream_ptr(pred))

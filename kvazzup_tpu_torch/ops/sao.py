@@ -6,10 +6,11 @@ decision gathers per-CTB statistics for every edge class and band at once,
 picks offsets and classes by the reference's RD estimate, and `sao_apply`
 adds each sample's offset from its CTB's parameters.
 
-`sao_apply` is the hand-kernel wrapper: a CPU tensor takes `sao_apply_plain`,
-a CUDA tensor launches `kvz_sao_apply` (`csrc/sao_kernels.cu`, the
-counterpart of the Pallas `_sao_strip_kernel`) or raises.  `LAUNCHES`
-counts kernel launches; the plain version never touches it.  The
+`sao_apply_planes` is the hand-kernel wrapper: CPU tensors take
+`sao_apply_plain` per plane, CUDA tensors launch `kvz_sao_apply`
+(`csrc/sao_kernels.cu`, the counterpart of the Pallas `_sao_strip_kernel`)
+once for up to three planes, or raise; `sao_apply` is its one-plane form.
+`LAUNCHES` counts kernel launches; the plain version never touches it.  The
 sharded-strip arguments of the reference (`xpad`, `lvalid`, `rvalid`) and
 bit depths other than 8 are not ported and raise.
 
@@ -40,6 +41,9 @@ _EO_LO = (0, 0, -7, -7)  # signs inferred per category (+, +, -, -)
 _EO_HI = (7, 7, 0, 0)
 
 LAUNCHES = {"sao": 0}
+# the kernel stages the CTBs a 128 x 32 tile touches, and a thread's 4
+# samples share one: ctb a multiple of 4
+CTB_STEP = 4
 
 
 def reset_launches() -> None:
@@ -248,28 +252,62 @@ def sao_apply_plain(rec, typ, aux, offs, *, ctb: int, bd: int = 8):
     return (r + delta).clamp(0, (1 << bd) - 1).to(torch.uint8)
 
 
+def _check_plane(rec, typ, aux, offs, ctb: int, name: str):
+    """Raise unless the plane's operands are what the kernel takes (the
+    message names the plane; nothing is formatted when they are)."""
+    try:
+        runtime.check_operand(rec, "rec", 2, dtype=torch.uint8)
+        if ctb < CTB_STEP or ctb % CTB_STEP:
+            raise ValueError(f"SAO apply needs a ctb that is a multiple of {CTB_STEP}, got {ctb}")
+        h, w = rec.shape
+        cbh, cbw = -(-h // ctb), -(-w // ctb)
+        runtime.check_operand(typ, "typ", 2, (cbh, cbw))
+        runtime.check_operand(aux, "aux", 2, (cbh, cbw))
+        runtime.check_operand(offs, "offs", 3, (cbh, cbw, 4))
+    except (TypeError, ValueError) as e:
+        raise type(e)(f"{name}: {e}") from None
+
+
+def sao_apply_planes(planes):
+    """Apply SAO to up to three 8-bit planes in one launch.
+
+    planes: a sequence of (rec, typ, aux, offs, ctb), each as for
+    `sao_apply` (the encoder passes luma at the CTB size and Cb, Cr at half
+    of it).  Returns the new (H, W) uint8 planes, in order."""
+    if not 1 <= len(planes) <= 3:
+        raise ValueError(f"SAO apply takes 1 to 3 planes, got {len(planes)}")
+    names = ("luma", "cb", "cr") if len(planes) == 3 else ("plane",) * len(planes)
+    for (rec, typ, aux, offs, ctb), name in zip(planes, names):
+        _check_plane(rec, typ, aux, offs, ctb, name)
+    if not runtime.kernel_route(*(t for p in planes for t in p[:4])):
+        return [sao_apply_plain(rec, typ, aux, offs, ctb=ctb)
+                for rec, typ, aux, offs, ctb in planes]
+    rec0 = planes[0][0]
+    buf = torch.empty(sum(p[0].numel() for p in planes), dtype=torch.uint8,
+                      device=rec0.device).split([p[0].numel() for p in planes])
+    outs = [b.view(p[0].shape) for b, p in zip(buf, planes)]
+    args = []
+    for (rec, typ, aux, offs, ctb), out in zip(planes, outs):
+        h, w = rec.shape
+        args += [rec.data_ptr(), typ.data_ptr(), aux.data_ptr(), offs.data_ptr(),
+                 out.data_ptr(), h, w, ctb, typ.shape[1]]
+    args += [None, None, None, None, None, 0, 0, 0, 0] * (3 - len(planes))
+    with runtime.on_device(rec0):
+        err = runtime.kernel_lib().kvz_sao_apply(*args, len(planes),
+                                                 runtime.stream_ptr(rec0))
+    runtime.check_launch(err, "sao")
+    LAUNCHES["sao"] += 1
+    return outs
+
+
 def sao_apply(rec, typ, aux, offs, *, ctb: int, bd: int = 8, xpad: int = 0,
               lvalid=False, rvalid=False):
     """Apply SAO to one plane: rec (H, W) uint8; typ, aux (cbh, cbw) int32;
-    offs (cbh, cbw, 4) int32, cbh = ceil(H / ctb), cbw = ceil(W / ctb).
-    Returns a new (H, W) uint8 tensor."""
+    offs (cbh, cbw, 4) int32, cbh = ceil(H / ctb), cbw = ceil(W / ctb),
+    ctb a multiple of 4.  Returns a new (H, W) uint8 tensor: a one-plane launch of the
+    kernel of `sao_apply_planes`."""
     if xpad or lvalid or rvalid:
         raise NotImplementedError("sharded-strip SAO (xpad, lvalid, rvalid) is not ported")
     if bd != 8:
         raise NotImplementedError(f"SAO at bit depth {bd} is not ported (8 only)")
-    runtime.check_operand(rec, "rec", 2, dtype=torch.uint8)
-    h, w = rec.shape
-    cbh, cbw = -(-h // ctb), -(-w // ctb)
-    runtime.check_operand(typ, "typ", 2, (cbh, cbw))
-    runtime.check_operand(aux, "aux", 2, (cbh, cbw))
-    runtime.check_operand(offs, "offs", 3, (cbh, cbw, 4))
-    if not runtime.kernel_route(rec, typ, aux, offs):
-        return sao_apply_plain(rec, typ, aux, offs, ctb=ctb, bd=bd)
-    out = torch.empty_like(rec)
-    with torch.cuda.device(rec.device):
-        err = runtime.kernel_lib().kvz_sao_apply(
-            rec.data_ptr(), typ.data_ptr(), aux.data_ptr(), offs.data_ptr(),
-            out.data_ptr(), h, w, ctb, cbw, runtime.stream_ptr(rec))
-    runtime.check_launch(err, "sao")
-    LAUNCHES["sao"] += 1
-    return out
+    return sao_apply_planes([(rec, typ, aux, offs, ctb)])[0]

@@ -13,6 +13,7 @@ compiler or failed launch raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,7 +31,8 @@ torch.set_float32_matmul_precision("highest")
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-KERNEL_SOURCES = ("q_kernels.cu", "sao_kernels.cu", "resid_kernels.cu")
+KERNEL_SOURCES = ("q_kernels.cu", "sao_kernels.cu", "resid_kernels.cu", "merge_kernels.cu")
+KERNEL_HEADERS = ("satd_warp.cuh",)  # included by the sources; part of the build hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -98,10 +100,11 @@ def build_kernels(verbose: bool = False) -> str:
 
     Each source compiles in its own nvcc process, all at once; the objects
     are then linked into one library.  The file name carries a hash of the
-    sources and flags, so an edited kernel never loads a stale build."""
+    sources, headers and flags, so an edited kernel never loads a stale
+    build."""
     srcs = [os.path.join(CSRC_DIR, s) for s in KERNEL_SOURCES]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + [os.path.join(CSRC_DIR, s) for s in KERNEL_HEADERS]:
         with open(s, "rb") as f:
             h.update(f.read())
     tag = h.hexdigest()[:16]
@@ -128,14 +131,15 @@ def build_kernels(verbose: bool = False) -> str:
 
 
 def _bind(lib):
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.kvz_quant.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.kvz_dequant.argtypes = [p, p, p, i, i, i, i, p]
     lib.kvz_satd.argtypes = [p, p, p, i, i, i, p]
-    lib.kvz_sao_apply.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.kvz_sao_apply.argtypes = [p, p, p, p, p, i, i, i, i] * 3 + [i, p]
     lib.kvz_code_residual.argtypes = [p, p, p, p, p, i, i] * 3 + [p, i, i, p]
+    lib.kvz_merge_search.argtypes = [p, ll, ll, p, p, p, i, i, i, p, p, p, p, p]
     for fn in (lib.kvz_quant, lib.kvz_dequant, lib.kvz_satd, lib.kvz_sao_apply,
-               lib.kvz_code_residual):
+               lib.kvz_code_residual, lib.kvz_merge_search):
         fn.restype = ctypes.c_int
     return lib
 
@@ -179,9 +183,21 @@ def kernel_route(*ts) -> bool:
     return True
 
 
+_NO_SWITCH = contextlib.nullcontext()
+
+
+def on_device(t):
+    """A context that makes t's CUDA device the current one for a launch;
+    when it already is (the usual case), it does nothing, so a wave-loop
+    launch pays no device switch."""
+    idx = t.device.index
+    return _NO_SWITCH if idx == torch.cuda.current_device() else torch.cuda.device(idx)
+
+
 def stream_ptr(t) -> int:
-    """The raw handle of PyTorch's current CUDA stream on t's device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current CUDA stream on t's device (the
+    call PyTorch's own kernel launchers use: no Stream object is built)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check_launch(err: int, name: str) -> None:

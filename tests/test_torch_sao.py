@@ -174,6 +174,26 @@ def test_apply_wrapper_on_cpu():
         tsao.sao_apply(rec, typ[:1].contiguous(), aux, offs, ctb=16)
 
 
+def test_apply_planes_matches_plane_calls_and_reference():
+    """The three-plane wrapper on CPU tensors: luma at ctb 16 and both chroma
+    planes at ctb 8, as the encoder calls it, equal three `sao_apply_plain`
+    calls and the reference's `sao_apply` on each plane."""
+    rng = np.random.default_rng(9)
+    planes = []
+    for k, (h, w, ctb) in enumerate(((64, 96, 16), (32, 48, 8), (32, 48, 8))):
+        rec = rng.integers(0, 256, (h, w)).astype(np.uint8)
+        planes.append((rec, *_apply_params("mixed", h // ctb, w // ctb, seed=30 + k), ctb))
+    tsao.reset_launches()
+    got = tsao.sao_apply_planes([(T(r), T(t), T(a), T(o), c) for r, t, a, o, c in planes])
+    assert tsao.LAUNCHES == {"sao": 0}
+    for (rec, typ, aux, offs, ctb), g in zip(planes, got):
+        want = np.asarray(jsao.sao_apply(jnp.asarray(rec), jnp.asarray(typ), jnp.asarray(aux),
+                                         jnp.asarray(offs), ctb=ctb))
+        np.testing.assert_array_equal(want, g.numpy())
+        assert torch.equal(g, tsao.sao_apply_plain(T(rec), T(typ), T(aux), T(offs), ctb=ctb))
+        assert not np.array_equal(rec, g.numpy())
+
+
 # ---------------------------------------------------------------- the slice
 
 

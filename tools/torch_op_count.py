@@ -1,15 +1,17 @@
-"""Count the ATen operations of the port's plain residual chains (CPU).
+"""Count the ATen operations of the port's plain residual chains and of
+the P wave's plain merge search (CPU).
 
     python tools/torch_op_count.py
 
 Runs `hopper_q.code_residual_wave` (one wave: a 16x16 luma and two 8x8
-chroma blocks per lane) and the IDR mode prepass's `code_residual_rows`
-(`group=3`) on CPU tensors, which take the plain PyTorch chain, under
-torch.profiler, and prints the number of leaf ATen operations that would
-launch a device kernel (views, reshapes and allocations left out).  It is
-an estimate, made without a card, of the device events that the fused
-kernel takes out of the eager wave loop; the card's own count comes from
-`tools/torch_profile.py`.
+chroma blocks per lane), the IDR mode prepass's `code_residual_rows`
+(`group=3`) and `merge.merge_search_plain` at 1, 3 and 5 merge candidates
+(luma MC, SATD, cost and argmin of one wave) on CPU tensors, which take
+the plain PyTorch versions, under torch.profiler, and prints the number of
+leaf ATen operations that would launch a device kernel (views, reshapes
+and allocations left out).  It is an estimate, made without a card, of
+the device events that a fused kernel takes out of the eager wave loop;
+the card's own count comes from `tools/torch_profile.py`.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from kvazzup_tpu_torch.ops import hopper_q  # noqa: E402
+from kvazzup_tpu_torch.ops import hopper_q, merge  # noqa: E402
 
 NO_LAUNCH = {
     "aten::view", "aten::reshape", "aten::_reshape_alias", "aten::as_strided",
@@ -63,6 +65,13 @@ def main() -> int:
         "IDR prepass, group 3": leaf_ops(lambda: hopper_q.code_residual_rows(
             pix(lanes, 256), pix(3 * lanes, 256), pix(lanes), True, 4, group=3)),
     }
+    win = torch.randint(0, 256, (lanes, 55, 55), generator=gen, dtype=torch.uint8)
+    orig, lam = pix(lanes, 256), torch.rand(lanes, generator=gen) * 100
+    for k_cands in (1, 3, 5):
+        mvs = [torch.randint(-64, 65, (lanes, 2), generator=gen, dtype=torch.int32)
+               for _ in range(k_cands)]
+        counts[f"merge search, {k_cands} cand."] = leaf_ops(
+            lambda m=mvs: merge.merge_search_plain(win, m, orig, lam, 16, 16))
     for k, n in counts.items():
         print(f"{k:28s} {n:4d} leaf ATen ops", flush=True)
     return 0

@@ -36,12 +36,12 @@ from kvazzup_tpu_torch.inputs import stream_config, synthetic_frames  # noqa: E4
 from kvazzup_tpu_torch.ops import mc  # noqa: E402
 from kvazzup_tpu_torch.ops.deblock import deblock_frame  # noqa: E402
 from kvazzup_tpu_torch.ops.me import motion_search  # noqa: E402
-from kvazzup_tpu_torch.ops.sao import (sao_apply, sao_decide, sao_decide_chroma,  # noqa: E402
-                                       sao_lambda)
+from kvazzup_tpu_torch.ops.sao import (sao_apply_planes, sao_decide,  # noqa: E402
+                                       sao_decide_chroma, sao_lambda)
 
 # the __global__ functions of csrc/*.cu
 HAND_KERNELS = ("satd_kernel", "quant_kernel", "dequant_kernel", "code_residual_kernel",
-                "sao_apply_kernel")
+                "sao_apply_kernel", "merge_search_kernel")
 
 
 def timed(fn):
@@ -107,20 +107,20 @@ def main(argv=None) -> int:
         out_i["recon_y"], out_i["recon_u"], out_i["recon_v"], qp))
     lam = sao_lambda(qp)
 
-    def sao_apply_planes(luma, chroma):
-        return (sao_apply(db[0], *luma[:3], ctb=16),
-                sao_apply(db[1], chroma[0], chroma[2], chroma[4], ctb=8),
-                sao_apply(db[2], chroma[0], chroma[3], chroma[5], ctb=8))
+    def sao_apply_frame(luma, chroma):
+        return sao_apply_planes([(db[0], *luma[:3], 16),
+                                 (db[1], chroma[0], chroma[2], chroma[4], 8),
+                                 (db[2], chroma[0], chroma[3], chroma[5], 8)])
 
     def sao_stage():
-        return sao_apply_planes(sao_decide(y, db[0], lam, ctb=16),
-                                sao_decide_chroma(u, db[1], v, db[2], lam, ctb=8))
+        return sao_apply_frame(sao_decide(y, db[0], lam, ctb=16),
+                               sao_decide_chroma(u, db[1], v, db[2], lam, ctb=8))
 
     timed(sao_stage)  # first use of its kernels in this process: not timed
     luma, stages["sao_decide_luma"] = timed(lambda: sao_decide(y, db[0], lam, ctb=16))
     chroma, stages["sao_decide_chroma"] = timed(lambda: sao_decide_chroma(
         u, db[1], v, db[2], lam, ctb=8))
-    _, stages["sao_apply_3_planes"] = timed(lambda: sao_apply_planes(luma, chroma))
+    _, stages["sao_apply_3_planes"] = timed(lambda: sao_apply_frame(luma, chroma))
     lam_x1k = int(frame_intra.LAMBDA_X1K[qp])
     _, stages["p_motion_search"] = timed(lambda: motion_search(
         y, ref[0], lam_x1k, width=w, height=h))
