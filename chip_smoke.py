@@ -7,24 +7,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      (one nvcc per source, in parallel);
   2. each hand kernel (SATD, quant, dequant, the fused residual coding, SAO
      apply, the P wave's merge search) against its plain PyTorch version on
-     the card at the 1080p main-path shapes (SATD also at 4x4, 8x8 and
-     32x32 blocks; the merge search at 1, 3 and 5 candidates with MVs that
-     leave the window and tied costs; SAO over three planes in one launch
-     and one plane at a time), element-identical (tolerance 0; float32
-     outputs bit for bit), plus first-index tie-breaking of argmin / stable
-     sort;
-  3. two 1920x1080 IDR + 3 P encodes of synthetic_frames(1920, 1080, 4,
-     seed=12) at QP 32 through `Encoder` on cuda: the CLI defaults, then
-     `--sao` (SAO + WPP).  Each is held against its JAX golden
-     (kvazzup_tpu_torch/golden/ld_1080p_q32.json, ld_sao_1080p_q32.json):
-     per-frame bytes, stream SHA-256 and recon SHA-256; each prints its
-     per-frame device and entropy times and the launch count of every
-     kernel, counted from 0 over that encode alone (every kernel the path
-     runs must launch; the residual kernel once per wave and once per IDR
-     mode prepass, the merge search once per P wave, SATD once per IDR
-     frame and twice per P frame, SAO once per frame with --sao and never
-     without, quant and dequant never: the encoder reaches them only
-     through the residual kernel);
+     the card at the 1080p main-path shapes of the CTB16 and CTB64 paths
+     (SATD also at 4x4, 8x8, 32x32 and 64x64 blocks; quant and dequant at
+     the CTB64 path's 32x32 transform shapes; the residual kernel over a
+     CU32's two 16x16 chroma blocks (512 threads); the merge search at 1, 3
+     and 5 candidates with MVs that leave the window and tied costs; SAO
+     over three planes in one launch at CTB 16 and 64 and one plane at a
+     time), element-identical (tolerance 0; float32 outputs bit for bit),
+     plus first-index tie-breaking of argmin, stable sort and its top-k;
+  3. three 1920x1080 IDR + 3 P encodes of synthetic_frames(1920, 1080, 4,
+     seed=12) at QP 32 through `Encoder` on cuda: the CLI defaults,
+     `--sao` (SAO + WPP), and `--ctu 64 --sao` (the CTB64 quadtree with
+     SAO).  Each is held against its JAX golden
+     (kvazzup_tpu_torch/golden/ld_1080p_q32.json, ld_sao_1080p_q32.json,
+     ld64_sao_1080p_q32.json): per-frame bytes, stream SHA-256 and recon
+     SHA-256; each prints its per-frame device and entropy times and the
+     launch count of every kernel, counted from 0 over that encode alone;
+     every kernel the path runs must launch, exactly as often as its code
+     launches it (`expected_launches`);
   4. kernel vs plain times at the main-path shapes (CUDA events around 20
      calls, the least of 5 runs: at the wave shapes this is the wrapper's
      host path per call), the kernel's own device time per call
@@ -59,7 +59,8 @@ from kvazzup_tpu_torch.ops.mc import sheared_ref_strips, strip_window_slice
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(ROOT, "kvazzup_tpu_torch", "golden")
-PATHS = (("low-delay", "ld_1080p_q32.json"), ("low-delay --sao", "ld_sao_1080p_q32.json"))
+PATHS = (("low-delay", "ld_1080p_q32.json"), ("low-delay --sao", "ld_sao_1080p_q32.json"),
+         ("low-delay --ctu 64 --sao", "ld64_sao_1080p_q32.json"))
 SOURCE = {"satd": "kvazzup_tpu_torch/csrc/q_kernels.cu",
           "quant": "kvazzup_tpu_torch/csrc/q_kernels.cu",
           "dequant": "kvazzup_tpu_torch/csrc/q_kernels.cu",
@@ -81,6 +82,7 @@ KERNEL_FN = {"satd": "satd_kernel", "quant": "quant_kernel", "dequant": "dequant
              "residual": "code_residual_kernel", "sao": "sao_apply_kernel",
              "merge": "merge_search_kernel"}
 NCTU, LANES = 8160, 68  # 1920x1088 at CTB16: 120 x 68 CTUs, 68 lanes per wave
+NCTB64, LANES64 = 510, 17  # 1920x1088 at CTB64: 30 x 17 CTBs, 17 lanes per wave
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # integer and float32 arithmetic outside the tensor cores: the card's float32
 # peak; its int32 rate is no higher, so the time bound stays a lower bound
@@ -227,7 +229,7 @@ def kernel_cases(dev):
         (pix(LANES, 64), pix(LANES, 64), qrows(LANES), 3) for _ in range(2)]
     intra = t(rng.integers(0, 2, (LANES,)).astype(bool))
     cases.append(("residual", "wave 68 x (256 + 64 + 64)",
-                  lambda: hopper_q.code_residual_wave(*wave, intra),
+                  lambda: hopper_q.code_residual_planes(wave, intra),
                   lambda: [hopper_q.code_residual_rows_plain(o, p, q, intra, lg)
                            for o, p, q, lg in wave],
                   [x for o, p, q, _ in wave for x in (o, p, q)] + [intra],
@@ -259,7 +261,78 @@ def kernel_cases(dev):
             lambda r=rec, a=typ, b=aux, o=offs, c=ctb: sao.sao_apply(r, a, b, o, ctb=c),
             lambda r=rec, a=typ, b=aux, o=offs, c=ctb: sao.sao_apply_plain(r, a, b, o, ctb=c),
             (rec, typ, aux, offs))
+    cases += quad64_cases(dev, rng, add)
     cases += merge_cases(dev, rng)
+    return cases
+
+
+def quad64_cases(dev, rng, add):
+    """The CTB64 path's shapes at 1080p (30 x 17 CTBs, 17 lanes a wave):
+    SATD of the CU64 ME vectors, of the IDR 32-grid mode sweep and of a
+    wave's CU64 merge + ME candidates; quant and dequant of the TU32 prepass
+    and wave rows; the fused residual kernel over a CU32's two 16x16 chroma
+    blocks (512 threads), a CU16's planes and the CU64 leaf's chroma; SAO
+    over the three planes at CTB 64 / 32."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def pix(*s):
+        return t(rng.integers(0, 256, s).astype(np.int32))
+
+    def qrows(b):
+        return t(rng.integers(0, 52, (b,)).astype(np.int32))
+
+    cases = []
+    for label, rows, group, log2 in (("CU64 ME (510,4096)", NCTB64, 1, 6),
+                                     ("IDR64 sweep (2040*35,1024) bcast", 4 * NCTB64 * 35, 35, 5),
+                                     ("P64 intra (2040*11,1024) bcast", 4 * NCTB64 * 11, 11, 5),
+                                     ("CU64 wave K=1 (34,4096)", 2 * LANES64, 1, 6)):
+        a, b = pix(rows, 1 << 2 * log2), pix(rows // group, 1 << 2 * log2)
+        add("satd", label, lambda a=a, b=b, g=group, lg=log2: hopper_q.satd_rows(a, b, lg, g),
+            lambda a=a, b=b, g=group, lg=log2: hopper_q.satd_rows_plain(a, b, lg, g), (a, b))
+    for rows, label in ((4 * NCTB64 * 3, "TU32 prepass (2040*3,1024)"),
+                        (NCTB64 * 8, "CU64 prepass (510*8,1024)"),
+                        (LANES64, "TU32 wave (17,1024)"),
+                        (4 * LANES64, "CU64 leaf wave (68,1024)")):
+        c = t(rng.integers(-30000, 30000, (rows, 1024)).astype(np.int32))
+        lv = t(rng.integers(-32768, 32768, (rows, 1024)).astype(np.int32))
+        qp = qrows(rows)
+        dz = t(np.where(rng.integers(0, 2, (rows,)) > 0, 171, 85).astype(np.int32))
+        add("quant", label,
+            lambda c=c, qp=qp, dz=dz: hopper_q.quantize_rows(c, qp, dz, 5),
+            lambda c=c, qp=qp, dz=dz: hopper_q.quantize_rows_plain(c, qp, dz, 5), (c, qp, dz))
+        add("dequant", label, lambda lv=lv, qp=qp: hopper_q.dequantize_rows(lv, qp, 5),
+            lambda lv=lv, qp=qp: hopper_q.dequantize_rows_plain(lv, qp, 5), (lv, qp))
+    res_ops = OPS_PER_ELEM["residual"]
+    intra = t(rng.integers(0, 2, (LANES64,)).astype(bool))
+    for label, lgs in (("CU32 chroma 17 x (256 + 256)", (4, 4)),
+                       ("CU16 unit 17 x (256 + 64 + 64)", (4, 3, 3))):
+        planes = [(pix(LANES64, 1 << 2 * lg), pix(LANES64, 1 << 2 * lg), qrows(LANES64), lg)
+                  for lg in lgs]
+        cases.append(("residual", label,
+                      lambda pl=planes: hopper_q.code_residual_planes(pl, intra),
+                      lambda pl=planes: [hopper_q.code_residual_rows_plain(o, p, q, intra, lg)
+                                         for o, p, q, lg in pl],
+                      [x for o, p, q, _ in planes for x in (o, p, q)] + [intra],
+                      sum(res_ops[lg] * p.numel() for _, p, _, lg in planes)))
+    po, pp, pq = pix(8 * LANES64, 256), pix(8 * LANES64, 256), qrows(8 * LANES64)
+    cases.append(("residual", "CU64 leaf chroma (8*17,256)",
+                  lambda: hopper_q.code_residual_rows(po, pp, pq, False, 4),
+                  lambda: hopper_q.code_residual_rows_plain(po, pp, pq, False, 4),
+                  (po, pp, pq), res_ops[4] * pp.numel()))
+    planes = []
+    for h, w, ctb in ((1088, 1920, 64), (544, 960, 32), (544, 960, 32)):
+        cbh, cbw = h // ctb, w // ctb
+        typ_np = rng.integers(0, 3, (cbh, cbw)).astype(np.int32)
+        aux_np = np.where(typ_np == 2, rng.integers(0, 4, (cbh, cbw)),
+                          rng.integers(0, 29, (cbh, cbw))).astype(np.int32)
+        planes.append((t(rng.integers(0, 256, (h, w)).astype(np.uint8)), t(typ_np), t(aux_np),
+                       t(rng.integers(-7, 8, (cbh, cbw, 4)).astype(np.int32)), ctb))
+    cases.append(("sao", "CTB64 frame: 3 planes, one launch",
+                  lambda: sao.sao_apply_planes(planes),
+                  lambda: [sao.sao_apply_plain(*p[:4], ctb=p[4]) for p in planes],
+                  [x for p in planes for x in p[:4]],
+                  OPS_PER_ELEM["sao"] * sum(p[0].numel() for p in planes)))
     return cases
 
 
@@ -350,7 +423,17 @@ def check_ties(dev) -> None:
     i2 = torch.stack([x[:, 1], x[:, 3]]).argmin(dim=0)
     if not bool((i2 == 0).all()):
         raise AssertionError("argmin over dim 0 does not return the first index")
-    log("  argmin / stable-sort ties: first index wins")
+    # the prepasses' top-k (the reference's lax.top_k of -cost): the k
+    # lowest of 35 costs per row, the lower index first on ties, over more
+    # rows than a sort kernel's single block
+    cost = torch.tensor(np.random.default_rng(3).integers(0, 4, (4 * NCTB64, 35)),
+                        dtype=torch.float32, device=dev)
+    want = np.argsort(cost.cpu().numpy(), axis=1, kind="stable")
+    for k in (2, 3):
+        got = torch.sort(cost, dim=1, stable=True).indices[:, :k].cpu().numpy()
+        if not np.array_equal(got, want[:, :k]):
+            raise AssertionError(f"stable-sort top-{k} does not keep index order on ties")
+    log("  argmin / stable-sort / top-k ties: first index wins")
 
 
 def encode_1080p(dev, golden) -> tuple[list, dict]:
@@ -358,18 +441,24 @@ def encode_1080p(dev, golden) -> tuple[list, dict]:
     frame against it; returns the per-frame rows and the kernel launches
     of the measured encode alone."""
     w, h, nf = golden["width"], golden["height"], golden["n_frames"]
-    with_sao = golden["config"]["sao"]
-    cfg = stream_config(w, h, qp=golden["qp"], merge=golden["merge_cand"], sao=with_sao)
-    if (cfg.sao_enabled, cfg.wpp) != (with_sao, golden["config"]["wpp"]):
-        raise AssertionError(f"configuration differs from the golden's: {golden['config']}")
+    gcfg = golden["config"]
+    with_sao = gcfg["sao"]
+    cfg = stream_config(w, h, qp=golden["qp"], merge=golden["merge_cand"], sao=with_sao,
+                        ctu=1 << gcfg["ctb_log2"])
+    if ((cfg.sao_enabled, cfg.wpp, cfg.ctb_log2)
+            != (with_sao, gcfg["wpp"], gcfg["ctb_log2"])
+            or cfg.min_cb_log2 != gcfg.get("min_cb_log2", cfg.min_cb_log2)
+            or cfg.max_tb_log2 != gcfg.get("max_tb_log2", cfg.max_tb_log2)):
+        raise AssertionError(f"configuration differs from the golden's: {gcfg}")
+    python_cabac = with_sao and cfg.ctb_log2 == 4  # SAO at CTB16: the Python tier
     frames = synthetic_frames(w, h, nf, seed=golden["seed"])
     # warm-up on a throwaway encoder (one IDR and one P): cuBLAS handles,
     # allocator pools, constant tables; the first path also builds the
-    # native CABAC library, the SAO path warms only its device stage
+    # native CABAC library, the CTB16 SAO path warms only its device stage
     warm = Encoder(cfg, intra_period=golden["intra_period"], device=dev)
     for (y, u, v) in frames[:2]:
         ctx = warm.encode_frame_device(y, u, v)
-        if not with_sao:
+        if not python_cabac:
             warm.encode_frame_entropy(ctx)
     torch.cuda.synchronize()
 
@@ -404,24 +493,49 @@ def encode_1080p(dev, golden) -> tuple[list, dict]:
         raise AssertionError(f"1080p stream or recon differs from the JAX golden in frames {bad}")
     if rows[0]["recon_shape"] != [[h, w], [h // 2, w // 2], [h // 2, w // 2]]:
         raise AssertionError(f"unexpected recon shape {rows[0]['recon_shape']}")
-    path_kernels = ("satd", "residual", "merge") + (("sao",) if with_sao else ())
-    zero = [k for k in path_kernels if counts[k] <= 0]
+    want = expected_launches(cfg, [r["kind"] for r in rows])
+    zero = [k for k, v in want.items() if v and counts[k] <= 0]
     if zero:
         raise AssertionError(f"kernels never launched on the main path: {zero}")
-    # per encode: the residual kernel once per wave of every frame and once
-    # per IDR prepass; the merge search once per P wave; SATD for the IDR
-    # mode prepass, and for each P frame's ME cost and intra cost prepass;
-    # SAO once per frame with --sao; quant and dequant never
-    n_waves = schedule_r(cfg.ctbs_w, cfg.ctbs_h)["n_waves"]
-    n_idr = sum(r["kind"] == "idr" for r in rows)
-    want = {"residual": len(rows) * n_waves + n_idr,
-            "merge": (len(rows) - n_idr) * n_waves,
-            "satd": n_idr + 2 * (len(rows) - n_idr),
-            "sao": len(rows) if with_sao else 0, "quant": 0, "dequant": 0}
     bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
     if bad:
         raise AssertionError(f"launches per encode (got, expected): {bad}")
     return rows, counts
+
+
+def expected_launches(cfg, kinds) -> dict:
+    """Each kernel's launches in an encode of frames of `kinds`, counted
+    from the code of the path.
+
+    CTB16: the residual kernel once per wave of every frame and once per
+    IDR mode prepass; the merge search once per P wave; SATD for the IDR
+    mode prepass, and for each P frame's ME cost and intra cost prepass;
+    quant and dequant never (the encoder reaches them only through the
+    residual kernel).
+
+    CTB64 IDR: the prepasses launch SATD twice (the 16- and 32-grid
+    sweeps), the residual kernel once (16-grid RD) and quant + dequant
+    twice (the 32-grid and CU64 RD, 32x32 blocks); each wave codes per
+    32-quadrant a CU32 (quant + dequant for its TU32, one residual launch
+    for its two TU16 chroma blocks) and four CU16s (one residual launch
+    each), and the CU64 leaf's four TU32 units likewise: 24 residual and
+    8 quant + dequant a wave.  CTB64 P: SATD five times in the prepasses
+    (the ME costs at 64, 32, 16 and the intra estimates at 32, 16); each
+    wave 21 arbitrations (one SATD each: four CU32s, sixteen CU16s, the
+    CU64), one residual launch per CU32 and CU16 and one for the CU64
+    leaf's eight chroma TU16s, quant + dequant per CU32 and once for the
+    CU64's four TU32s.  SAO once per frame with SAO on; no merge search."""
+    n_waves = schedule_r(cfg.ctbs_w, cfg.ctbs_h)["n_waves"]
+    n_idr = sum(k in ("idr", "quad") for k in kinds)
+    n_p = len(kinds) - n_idr
+    sao_n = len(kinds) if cfg.sao_enabled else 0
+    if cfg.ctb_log2 == 4:
+        return {"residual": len(kinds) * n_waves + n_idr, "merge": n_p * n_waves,
+                "satd": n_idr + 2 * n_p, "sao": sao_n, "quant": 0, "dequant": 0}
+    q = n_idr * (2 + 8 * n_waves) + n_p * 5 * n_waves
+    return {"residual": n_idr * (1 + 24 * n_waves) + n_p * 21 * n_waves, "merge": 0,
+            "satd": 2 * n_idr + n_p * (5 + 21 * n_waves), "sao": sao_n, "quant": q,
+            "dequant": q}
 
 
 def main() -> int:

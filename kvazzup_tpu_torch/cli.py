@@ -1,11 +1,13 @@
 """Command-line encoder for the PyTorch port (counterpart of the
-`encode` command of kvazzup_tpu/cli.py, low-delay CTB16 only).
+`encode` command of kvazzup_tpu/cli.py, low-delay CTB16 and CTB64).
 
     python -m kvazzup_tpu_torch encode in.y4m out.265 [--qp 32] [--frames N]
         [--size WxH] [--intra-period 64] [--merge 1..5] [--no-deblock]
-        [--sao] [--wpp] [--device cuda|cpu]
+        [--sao] [--wpp] [--ctu 16|64] [--device cuda|cpu]
 
-`--sao` turns WPP on as well (the JAX CLI's rule at CTB16 without tiles).
+`--sao` turns WPP on as well at CTB16 (the JAX CLI's rule without tiles);
+`--ctu 64` is the CTB64 quadtree (CUs 64 down to 8, TUs up to 32), where
+WPP is not ported.
 
 Flags of the JAX CLI that select other configurations are accepted only at
 their default value; anything else raises NotImplementedError.
@@ -18,7 +20,7 @@ import sys
 import time
 
 # flag -> default value; any other value selects an unported path
-_UNPORTED = {"tiles": 1, "slices": 1, "ctu": 16,
+_UNPORTED = {"tiles": 1, "slices": 1,
              "tu_intra_depth": 1, "cu8": False, "rdoq": False, "tmvp": False,
              "bitdepth": 8, "gop": "ld", "bitrate": 0}
 
@@ -40,6 +42,8 @@ def cmd_encode(args) -> int:
     from .inputs import psnr, stream_config
 
     bad = [k for k, dflt in _UNPORTED.items() if getattr(args, k) != dflt]
+    if args.ctu == 32:
+        bad.append("ctu 32")
     if bad:
         raise NotImplementedError(
             f"not ported to kvazzup_tpu_torch: --{', --'.join(b.replace('_', '-') for b in bad)}")
@@ -47,7 +51,7 @@ def cmd_encode(args) -> int:
     if not frames:
         raise SystemExit("no frames read")
     cfg = stream_config(w, h, qp=args.qp, deblock=not args.no_deblock, merge=args.merge,
-                        sao=args.sao, wpp=args.wpp)
+                        sao=args.sao, wpp=args.wpp, ctu=args.ctu)
     enc = Encoder(cfg, intra_period=args.intra_period, device=args.device)
     t0 = time.time()
     total_psnr = 0.0

@@ -29,8 +29,10 @@
 // the lanes of a warp hold consecutive 8-sample chunks of a row, so a 16x16
 // row is one contiguous 1 KB warp load of 16-byte vectors (two per operand
 // and lane); the vertical butterfly is three shuffle stages; one warp per
-// 16x16 or 32x32 row, several 4x4 / 8x8 rows per warp, 8 warps per CTA, so
-// the ME call has 1020 CTAs for 132 SMs.  The intra-sweep form broadcasts
+// 16x16, 32x32 or 64x64 row, several 4x4 / 8x8 rows per warp, 8 warps per
+// CTA, so the ME call has 1020 CTAs for 132 SMs.  A 64x64 row (the CTB64
+// path's CU64 costs: 510 rows at 1080p) takes 16 iterations of four
+// 8x8 subblocks each.  The intra-sweep form broadcasts
 // the original block over the 35 predictions (b row = a row / group), so
 // it reads a once and b 35x less.
 
@@ -149,6 +151,7 @@ int kvz_satd(const void* a, const void* b, void* out, int rows, int group,
     case 3: return (int)launch_satd<8, 8>(pa, pb, po, rows, group, s);
     case 4: return (int)launch_satd<8, 16>(pa, pb, po, rows, group, s);
     case 5: return (int)launch_satd<8, 32>(pa, pb, po, rows, group, s);
+    case 6: return (int)launch_satd<8, 64>(pa, pb, po, rows, group, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -26,7 +26,8 @@
 //
 // Design: one CTA per block row (a CTU lane), one thread per sample of the
 // row's block in each plane (256 luma + 64 + 64 chroma = 384 threads for a
-// wave; a single-plane call has N^2 threads).  A plane is a "segment" with
+// CTB16 wave, 256 + 256 for the Cb and Cr TU16s of a CTB64 wave's CU32;
+// a single-plane call has N^2 threads).  A plane is a "segment" with
 // its own pointers, row count and size.  Each stage's result is staged in
 // shared memory for the transpose to the next stage, with __syncthreads
 // between stages.  The DCT-16 and DCT-8 matrices and their transposes are
@@ -64,7 +65,7 @@ __device__ const int kDct16[256] = {
 __constant__ int kQuantScales[6] = {26214, 23302, 20560, 18396, 16384, 14564};
 __constant__ int kDequantScales[6] = {40, 45, 51, 57, 64, 72};
 
-constexpr int kMaxThreads = 384;  // 16x16 luma + two 8x8 chroma blocks
+constexpr int kMaxThreads = 512;  // two 16x16 chroma blocks (or 16x16 + 2 x 8x8)
 
 // One plane of the call: `rows` blocks of N x N = 2^log2 x 2^log2 samples.
 // orig and qp hold one entry per group of `group` rows.
@@ -173,7 +174,7 @@ extern "C" {
 // N^2) int32; orig: (rows / group, N^2) int32; qp: (rows / group,) int32.
 // intra: (rows / group,) uint8 flags shared by the planes, or null to use
 // the deadzone numerator `dz` (171 intra, 85 inter) for every row.  log2 is
-// 3 or 4, at most 384 samples per row over the planes, bit depth 8.
+// 3 or 4, at most 512 samples per row over the planes, bit depth 8.
 int kvz_code_residual(const void* o0, const void* p0, const void* q0, void* l0,
                       void* r0, int rows0, int log20,
                       const void* o1, const void* p1, const void* q1, void* l1,

@@ -1,16 +1,21 @@
 // Hadamard SATD of one block row held across the lanes of a warp, shared by
 // kvz_satd (csrc/q_kernels.cu) and kvz_merge_search (csrc/merge_kernels.cu).
 //
-// A row is an N x N block stored row-major (N = 4, 8, 16 or 32) and cut
-// into B x B subblocks (B = 4 when N = 4, else 8).  A lane holds one chunk:
-// B consecutive samples of one sample row of one subblock, so the lanes of
-// a warp read consecutive 16-byte words and a 16x16 row is one contiguous
-// 1 KB warp load.  Chunk c of a row covers samples c*B .. c*B + B - 1,
-// sample row y = c / P and column group c % P, P = N / B chunks per sample
-// row.  The B sample rows of a subblock therefore sit P lanes apart, and
-// the vertical butterfly runs across lanes with __shfl_xor_sync at masks
-// P, 2P, .., P*B/2 (2, 4 and 8 for a 16x16 row).  The horizontal butterfly
-// runs in registers.
+// A row is an N x N block stored row-major (N = 4, 8, 16, 32 or 64) and
+// cut into B x B subblocks (B = 4 when N = 4, else 8).  A lane holds one
+// chunk: B consecutive samples of one sample row of one subblock, so the
+// lanes of a warp read consecutive 16-byte words and a 16x16 row is one
+// contiguous 1 KB warp load.  Chunk c of a row covers samples c*B .. c*B +
+// B - 1, sample row y = c / P and column group c % P, P = N / B chunks per
+// sample row.  Up to N = 32 (P * B <= 32) lane l of iteration it holds
+// chunk it * 32 + l, so the B sample rows of a subblock sit P lanes apart,
+// and the vertical butterfly runs across lanes with __shfl_xor_sync at
+// masks P, 2P, .., P*B/2 (2, 4 and 8 for a 16x16 row).  A 64x64 row's
+// subblock rows lie 8 chunks apart, 64 in all, more than a warp: there an
+// iteration holds four side-by-side subblocks instead (lane l: sample row
+// l / 4 of subblock column l % 4 of the half band it % 2 of band it / 2),
+// whose rows sit S = 4 lanes apart.  The horizontal butterfly runs in
+// registers.
 //
 // All int32 and exact: |Hadamard coefficient| <= 64 * 255 for 8-bit input.
 
@@ -31,7 +36,22 @@ struct SatdGeom {
   static constexpr int LR = CHUNKS < 32 ? CHUNKS : 32;  // lanes per block row
   static constexpr int ITER = CHUNKS / LR;              // chunks per lane
   static constexpr int RW = 32 / LR;                    // block rows per warp
+  static constexpr bool WIDE = P * B > 32;              // N = 64: see above
+  static constexpr int S = WIDE ? 32 / B : P;           // lanes between subblock rows
 };
+
+// The chunk that lane l holds in iteration it.
+template <int B, int N>
+__device__ __forceinline__ int chunk_of(int it, int l) {
+  using G = SatdGeom<B, N>;
+  if constexpr (!G::WIDE) {
+    return it * G::LR + l;
+  } else {
+    constexpr int HALVES = G::P / G::S;  // iterations per band of B sample rows
+    const int band = it / HALVES, part = it % HALVES;
+    return (band * B + l / G::S) * G::P + part * G::S + l % G::S;
+  }
+}
 
 // In-register Walsh-Hadamard butterfly over B values.
 template <int B>
@@ -98,7 +118,7 @@ __device__ __forceinline__ int satd_row(const int* a, const int* b, int lane, bo
   int total = 0;
 #pragma unroll
   for (int it = 0; it < G::ITER; ++it) {
-    int c = it * G::LR + l;
+    int c = chunk_of<B, N>(it, l);
     int d[B], e[B];
     if (live) {
       load_chunk<B>(a + c * B, d);
@@ -109,7 +129,7 @@ __device__ __forceinline__ int satd_row(const int* a, const int* b, int lane, bo
 #pragma unroll
       for (int i = 0; i < B; ++i) d[i] = 0;
     }
-    int s = satd_subblock<B, G::P>(d, lane);
+    int s = satd_subblock<B, G::S>(d, lane);
     // one lane per subblock (its first sample row) contributes
     total += ((c / G::P) % B == 0) ? s : 0;
   }

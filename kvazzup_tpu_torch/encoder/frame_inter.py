@@ -21,11 +21,11 @@ from ..ops import intra as intra_ops
 from ..ops.costs import bits_of, fma
 from ..ops.mc import (edge_pad, extract_mc_neighborhoods, mc_chroma_window_batch,
                       mc_luma_window_batch, sheared_ref_strips, strip_window_slice)
-from ..ops.hopper_q import code_residual_wave
+from ..ops.hopper_q import code_residual_planes
 from ..ops.merge import MergeSearch
 from ..ops.me import motion_search
 from .frame_intra import (LAMBDA_X1K, N, P_PREPASS_MODES, _shift_lanes, from_blocks,
-                          frame_setup, intra_cost_prepass, ring0, ring_boundary,
+                          cost_prepass_grid, frame_setup, ring0, ring_boundary,
                           ring_push, wave_flags, wave_inputs, wave_to_raster)
 from .wavefront import schedule_r
 
@@ -120,7 +120,7 @@ def encode_frame_p_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int,
     pred_me = mc_luma_window_batch(win_y, me_mv, n, SEARCH_RANGE).reshape(nctu, -1)
     oy_flat = oy.reshape(nctu, -1)
     satd_me = ck.satd_flat(pred_me, oy_flat, 4).to(torch.float32)
-    imode, icost = intra_cost_prepass(y, oy, lam_rows, width=width, height=height)
+    imode, icost = cost_prepass_grid(y, oy_flat, lam_rows, log2=4, cw=cw, ch=ch)
 
     (oy_w, ou_w, ov_w, memv_w, pme_w, csme_w, im_w, ic_w, qp_w, qpc_w,
      lam_w) = wave_inputs(sched, nctu, [
@@ -200,9 +200,9 @@ def encode_frame_p_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int,
             pred_c.append(torch.where(use_intra[:, None], pred_ci, pred_cm))
 
         # the lane's three planes share its intra/inter deadzone
-        (lev_y, rec_y), *chroma = code_residual_wave(
-            (oyw, pred_y, qp_w[d], 4), (ou_w[d], pred_c[0], qpc_w[d], 3),
-            (ov_w[d], pred_c[1], qpc_w[d], 3), use_intra)
+        (lev_y, rec_y), *chroma = code_residual_planes(
+            [(oyw, pred_y, qp_w[d], 4), (ou_w[d], pred_c[0], qpc_w[d], 3),
+             (ov_w[d], pred_c[1], qpc_w[d], 3)], use_intra)
         ry = ring_push(ry, rec_y, n)
         levs_c, recs_c = [lev for lev, _ in chroma], [rec for _, rec in chroma]
         rc = [ring_push(rc[ci], recs_c[ci], m) for ci in (0, 1)]

@@ -2,14 +2,14 @@
 reconstruction (counterpart of kvazzup_tpu/encoder/frame_intra.py, fast
 path only).
 
-`intra_mode_prepass` decides every CTU's intra mode at once from
+`rd_prepass_grid` decides every CTU's intra mode at once from
 original-pixel neighbour boundaries (35-mode SATD sweep, MPM bit cost, true
 RD over the top 3).  `encode_frame_intra_fast` then walks the row-aligned
 wavefront (`wavefront.schedule_r`: wave d holds CTU
 (r, d - 2r) in lane r) and reconstructs: predict the chosen mode from the
 reconstructed boundary samples of the previous three waves (the "ring"),
 then transform, quantize, dequantize, inverse transform and reconstruct
-the wave's luma and both chroma planes in one `code_residual_wave` call.
+the wave's luma and both chroma planes in one `code_residual_planes` call.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from ..core.tables import CHROMA_QP_TABLE
 from ..ops import ctu_kernels as ck
 from ..ops import intra as intra_ops
 from ..ops.costs import bits_row_sum, fma
-from ..ops.hopper_q import code_residual_rows, code_residual_wave
+from ..ops.hopper_q import code_residual_planes, code_residual_rows
 from ..runtime import device_const
 from .wavefront import schedule_r
 
@@ -32,9 +32,12 @@ P_PREPASS_MODES = (0, 1, 2, 6, 10, 14, 18, 22, 26, 30, 34)
 
 
 def _lambda_f32(qp: int) -> float:
-    """sqrt(0.57 * 2^((qp - 12) / 3)) in float32, evaluated on the host."""
-    q = torch.tensor(float(qp), dtype=torch.float32)
-    return float(torch.sqrt(0.57 * 2.0 ** ((q - 12.0) / 3.0)))
+    """sqrt(0.57 * 2^((qp - 12) / 3)) in float32 as the reference's
+    compiled program evaluates it: the division by 3 becomes a float32
+    multiply by 1/3, and 2^x is rounded once from the exact power."""
+    f32 = np.float32
+    x = (f32(qp) - f32(12.0)) * (f32(1.0) / f32(3.0))
+    return float(np.sqrt(f32(0.57) * f32(2.0 ** float(x))))
 
 
 LAMBDA = np.array([_lambda_f32(q) for q in range(52)], np.float32)
@@ -129,13 +132,18 @@ def _take(x, idx):
     return x.gather(1, ix)
 
 
-def _prepass_sweep(y, oy, lam_rows, cw: int, ch: int, modes):
-    nctu = cw * ch
+def mode_sweep(y, oy_flat, lam_rows, cw: int, ch: int, modes=None, log2: int = 4):
+    """Orig-boundary intra sweep on the 2^log2 block grid (cw x ch blocks):
+    every mode of `modes` (None = all 35) predicted and SATD-costed against
+    the original block, plus its MPM bits (the left neighbour's SATD-best
+    mode as candidate A).  Returns (preds (nb, M, n^2), satd (nb, M),
+    bits (nb, M), cost = satd + lambda * bits (nb, M), mode_map: the M
+    mode numbers, or None for all 35)."""
+    n = 1 << log2
     fl, fa, ftr = avail_flags(cw, ch, y.device)
-    a = intra_ops.substitute_refs_ctb(orig_boundaries(y, N, cw, ch), fl, fa, ftr, N)
-    preds = ck.predict_modes_subset_flat(a, 4, True, modes)
-    oy_flat = oy.reshape(nctu, N * N)
-    satd = ck.satd_flat(preds, oy_flat[:, None, :], 4).to(torch.float32)
+    a = intra_ops.substitute_refs_ctb(orig_boundaries(y, n, cw, ch), fl, fa, ftr, n)
+    preds = ck.predict_modes_subset_flat(a, log2, True, modes)
+    satd = ck.satd_flat(preds, oy_flat[:, None, :], log2).to(torch.float32)
     sel0 = satd.argmin(dim=1)
     mode_map = None if modes is None else torch.as_tensor(
         np.asarray(modes, np.int32), device=y.device)
@@ -145,34 +153,41 @@ def _prepass_sweep(y, oy, lam_rows, cw: int, ch: int, modes):
     if mode_map is not None:
         bits = bits[:, mode_map.long()]
     cost = fma(lam_rows[:, None], bits, satd)
-    return preds, oy_flat, bits, cost, mode_map
+    return preds, satd, bits, cost, mode_map
 
 
-def intra_mode_prepass(y, oy, qp_rows, lam_rows, *, width: int, height: int):
-    """Dense per-CTU intra mode decision from original-pixel boundaries:
-    SATD + MPM-bit ranking of all 35 modes, then SSE + lambda^2 * rate
-    over the top 3.  Returns (nctu,) int32 modes."""
-    cw, ch = width // N, height // N
-    preds, oy_flat, bits, cost, _ = _prepass_sweep(y, oy, lam_rows, cw, ch, None)
+def rd_prepass_grid(y, oy_flat, qp_rows, lam_rows, *, log2: int, cw: int, ch: int,
+                    k: int = 3, sweep=None):
+    """Orig-boundary intra mode + RD estimate on the 2^log2 block grid
+    (counterpart of the reference's `frame_intra32._rd_prepass_grid`).
+
+    The 35-mode SATD + MPM-bit sweep (`mode_sweep`, or the `sweep` already
+    made) ranks the modes; the top k are coded (transform, quant, dequant,
+    inverse, recon) and the winner is the least SSE + lambda^2 * (level
+    bits + mode bits).  Returns (mode (nb,) int32, its RD cost (nb,)
+    float32)."""
+    n2 = 1 << (2 * log2)
+    if sweep is None:
+        sweep = mode_sweep(y, oy_flat, lam_rows, cw, ch, None, log2)
+    preds, _, bits, cost, _ = sweep
     # the reference's top_k keeps the lower index first on ties
-    cand = torch.sort(cost, dim=1, stable=True).indices[:, :3]
+    cand = torch.sort(cost, dim=1, stable=True).indices[:, :k]
     cand_preds = _take(preds, cand)
-    lev, rec = code_residual_rows(oy_flat, cand_preds.reshape(-1, N * N), qp_rows, True, 4,
-                                  group=3)
+    lev, rec = code_residual_rows(oy_flat, cand_preds.reshape(-1, n2), qp_rows, True, log2,
+                                  group=k)
     lev, rec = lev.reshape(cand_preds.shape), rec.reshape(cand_preds.shape)
     sse = ((rec - oy_flat[:, None, :]) ** 2).sum(dim=-1, dtype=torch.int32).to(torch.float32)
-    lam2 = lam_rows[:, None] * lam_rows[:, None]
+    lam2 = (lam_rows * lam_rows)[:, None]
     rd = fma(lam2, bits_row_sum(lev) + bits.gather(1, cand), sse)
-    best_k = rd.argmin(dim=1)
-    return cand.gather(1, best_k[:, None])[:, 0].to(torch.int32)
+    best_k = rd.argmin(dim=1)[:, None]
+    return cand.gather(1, best_k)[:, 0].to(torch.int32), rd.gather(1, best_k)[:, 0]
 
 
-def intra_cost_prepass(y, oy, lam_rows, *, width: int, height: int,
-                       modes=P_PREPASS_MODES):
-    """P-frame intra estimate over `modes`: (mode (nctu,), SATD + bits cost
-    of the chosen mode + lambda * 3)."""
-    cw, ch = width // N, height // N
-    _, _, _, cost, mode_map = _prepass_sweep(y, oy, lam_rows, cw, ch, modes)
+def cost_prepass_grid(y, oy_flat, lam_rows, *, log2: int, cw: int, ch: int,
+                      modes=P_PREPASS_MODES):
+    """P-frame intra estimate over `modes` on the 2^log2 grid: (mode (nb,),
+    SATD + bits cost of the chosen mode + lambda * 3)."""
+    _, _, _, cost, mode_map = mode_sweep(y, oy_flat, lam_rows, cw, ch, modes, log2)
     sel = cost.argmin(dim=1)
     mode = (sel if mode_map is None else mode_map[sel]).to(torch.int32)
     best = fma(lam_rows, 3.0, cost.gather(1, sel[:, None])[:, 0])
@@ -250,7 +265,8 @@ def encode_frame_intra_fast(y, u, v, qp: int, *, width: int, height: int,
     sched = schedule_r(cw, ch)
     lanes = sched["lanes"]
     qp_rows, qpc_rows, lam_rows, oy, ou, ov = frame_setup(y, u, v, qp, nctu)
-    modes = intra_mode_prepass(y, oy, qp_rows, lam_rows, width=width, height=height)
+    modes = rd_prepass_grid(y, oy.reshape(nctu, N * N), qp_rows, lam_rows, log2=4,
+                            cw=cw, ch=ch)[0]
 
     oy_w, ou_w, ov_w, mode_w, qp_w, qpc_w = wave_inputs(
         sched, nctu, [oy.reshape(nctu, -1), ou.reshape(nctu, -1),
@@ -272,9 +288,9 @@ def encode_frame_intra_fast(y, u, v, qp: int, *, width: int, height: int,
         for ci in (0, 1):
             a_c = intra_ops.substitute_refs_ctb(ring_boundary(*rc[ci], m), fl, fa, ftr, m)
             preds_c.append(_select_mode(ck.predict_all_modes_flat(a_c, 3, False), mode_w[d]))
-        (lev_y, rec_y), *chroma = code_residual_wave(
-            (oy_w[d], pred_y, qp_w[d], 4), (ou_w[d], preds_c[0], qpc_w[d], 3),
-            (ov_w[d], preds_c[1], qpc_w[d], 3), True)
+        (lev_y, rec_y), *chroma = code_residual_planes(
+            [(oy_w[d], pred_y, qp_w[d], 4), (ou_w[d], preds_c[0], qpc_w[d], 3),
+             (ov_w[d], preds_c[1], qpc_w[d], 3)], True)
         ry = ring_push(ry, rec_y, N)
         lev_y_w[d] = lev_y
         rec_y_w[d] = rec_y

@@ -1,13 +1,16 @@
 """Encoder top level: frames in, Annex-B bytes out (counterpart of
-kvazzup_tpu/encoder/top.py, CTB16 low-delay branch).
+kvazzup_tpu/encoder/top.py: its CTB16 and CTB64 low-delay branches).
 
-Per frame: device encode (IDR: `encode_frame_intra_fast`, P:
-`encode_frame_p_fast`) -> deblocking -> SAO decision and application
-(`--sao`; both read the original frame) -> the reference picture advances
--> host CABAC (`entropy.slice_data`: the native C writer, or its Python
-tier where SAO parameters precede each CTU's syntax; numpy in and out) ->
-NAL mux, with WPP entry points when `cfg.wpp`.  Configurations outside
-that branch raise NotImplementedError.
+Per frame: device encode (CTB16: IDR `encode_frame_intra_fast`, P
+`encode_frame_p_fast`; CTB64: IDR `encode_frame_intra64_fast`, P
+`encode_frame_p64_fast`, whose decision trees cross to the host) ->
+deblocking (CTB64: bS maps from the trees on the 8-sample grid) -> SAO
+decision and application (`--sao`; both read the original frame) -> the
+reference picture advances -> host CABAC (CTB16: `entropy.slice_data`,
+the native C writer or its Python tier where SAO parameters precede each
+CTU's syntax; CTB64: the native quadtree writer, `entropy.quad`) -> NAL
+mux, with WPP entry points when `cfg.wpp`.  Configurations outside those
+two branches raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -19,13 +22,18 @@ from .. import runtime
 from ..core.nal import NalType, NalUnit, compose_nal, ebsp_entry_offsets
 from ..core.params import (SliceHeader, StreamConfig, compose_pps, compose_slice_header,
                            compose_sps, compose_vps)
+from ..entropy.quad import encode_slice_data_intra_quad, encode_slice_data_p_quad
 from ..entropy.slice_data import (SaoState, encode_slice_data_intra,
                                   encode_slice_data_intra_wpp, encode_slice_data_p,
                                   encode_slice_data_p_wpp)
 from ..ops.deblock import compute_bs, deblock_frame
 from ..ops.sao import sao_apply_planes, sao_decide, sao_decide_chroma, sao_lambda
+from .cu32 import quad_bs_maps
 from .frame_inter import encode_frame_p_fast
+from .frame_inter32 import quad_p_bs_maps, quad_p_cell_maps
+from .frame_inter64 import encode_frame_p64_fast, quad_p64_trees_from_device
 from .frame_intra import encode_frame_intra_fast
+from .frame_intra64 import encode_frame_intra64_fast, quad_trees_from_device64
 
 
 def pad_to_coded(cfg, y, u, v):
@@ -47,10 +55,7 @@ def crop_display(cfg, ry, ru, rv):
 
 
 def _check_supported(cfg: StreamConfig) -> None:
-    unsupported = {
-        "ctb_log2 != 4": cfg.ctb_log2 != 4,
-        "min_cb_log2 != 4": cfg.min_cb_log2 != 4,
-        "max_transform_hierarchy_depth_intra": cfg.max_transform_hierarchy_depth_intra != 0,
+    common = {
         "bit_depth != 8": cfg.bit_depth != 8,
         "tiles": cfg.tile_cols != 1,
         "slices": cfg.slices != 1,
@@ -58,13 +63,25 @@ def _check_supported(cfg: StreamConfig) -> None:
         "rdoq": cfg.rdoq,
         "temporal_mvp": cfg.temporal_mvp,
         "fast_decision off": not cfg.fast_decision,
+        "max_transform_hierarchy_depth_intra": cfg.max_transform_hierarchy_depth_intra != 0,
     }
+    if cfg.ctb_log2 == 6:
+        branch = "CTB64"
+        unsupported = {**common,
+                       "min_cb_log2 != 3": cfg.min_cb_log2 != 3,
+                       "max_tb_log2 != 5": cfg.max_tb_log2 != 5,
+                       "wpp at CTB64": cfg.wpp}
+    else:
+        branch = "CTB16"
+        unsupported = {**common,
+                       "ctb_log2 not 4 or 6": cfg.ctb_log2 != 4,
+                       "min_cb_log2 != 4": cfg.min_cb_log2 != 4}
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            "kvazzup_tpu_torch encodes the CTB16 low-delay path only; "
-            f"unsupported here: {', '.join(bad)}")
-    if cfg.sao_enabled and not cfg.wpp:
+            "kvazzup_tpu_torch encodes the CTB16 and CTB64 low-delay paths only; "
+            f"unsupported at {branch}: {', '.join(bad)}")
+    if cfg.sao_enabled and not cfg.wpp and cfg.ctb_log2 == 4:
         raise NotImplementedError("SAO requires cfg.wpp at CTB16 (or the CTB32/64/tiles paths)")
     if not 1 <= cfg.merge_cand <= 5:
         raise ValueError("merge_cand must be in 1..5")
@@ -73,7 +90,8 @@ def _check_supported(cfg: StreamConfig) -> None:
 
 
 class Encoder:
-    """HEVC encoder: IDR every `intra_period` frames, low-delay P between."""
+    """HEVC encoder: IDR every `intra_period` frames, low-delay P between,
+    on the CTB16 grid or the CTB64 quadtree (`cfg.ctb_log2`)."""
 
     def __init__(self, cfg: StreamConfig, intra_period: int = 1, *, device) -> None:
         _check_supported(cfg)
@@ -130,6 +148,26 @@ class Encoder:
         is_idr = self._frame_count % self.intra_period == 0 or self._ref is None
         if is_idr:
             self._idr_count += 1
+        if cfg.ctb_log2 == 6:
+            out, (ry, ru, rv) = self._quad64(y, u, v, qp, is_idr)
+        else:
+            out, (ry, ru, rv) = self._ctb16(y, u, v, qp, is_idr)
+        sao = None
+        if cfg.sao_enabled:
+            ry, ru, rv, sao = self._sao(y, u, v, ry, ru, rv, qp)
+        first = self._frame_count == 0
+        self._frame_count += 1
+        self._poc = 0 if is_idr else self._poc + 1
+        self._ref = (ry, ru, rv)
+        kind = ("quad" if is_idr else "quad_p") if cfg.ctb_log2 == 6 else (
+            "idr" if is_idr else "p")
+        return {"kind": kind, "out": out, "qp": qp,
+                "first": first, "poc": self._poc, "sao": sao, "recon": (ry, ru, rv)}
+
+    def _ctb16(self, y, u, v, qp: int, is_idr: bool):
+        """CTB16 device encode + deblocking: (outputs, planes)."""
+        cfg = self.cfg
+        if is_idr:
             out = encode_frame_intra_fast(y, u, v, qp, width=cfg.width, height=cfg.height)
             bs_v = bs_h = None
         else:
@@ -138,19 +176,38 @@ class Encoder:
                                       height=cfg.height, merge_cand=cfg.merge_cand)
             bs_v, bs_h = compute_bs(out["ctype"], (out["lev_y"] != 0).any(dim=2).any(dim=1),
                                     out["mv"], cfg.ctbs_w, cfg.ctbs_h)
-        ry, ru, rv = out["recon_y"], out["recon_u"], out["recon_v"]
+        planes = out["recon_y"], out["recon_u"], out["recon_v"]
         if cfg.deblocking_enabled:
-            ry, ru, rv = deblock_frame(ry, ru, rv, qp, spacing=cfg.ctb_size,
-                                       bs_v=bs_v, bs_h=bs_h)
-        sao = None
-        if cfg.sao_enabled:
-            ry, ru, rv, sao = self._sao(y, u, v, ry, ru, rv, qp)
-        first = self._frame_count == 0
-        self._frame_count += 1
-        self._poc = 0 if is_idr else self._poc + 1
-        self._ref = (ry, ru, rv)
-        return {"kind": "idr" if is_idr else "p", "out": out, "qp": qp,
-                "first": first, "poc": self._poc, "sao": sao, "recon": (ry, ru, rv)}
+            planes = deblock_frame(*planes, qp, spacing=cfg.ctb_size, bs_v=bs_v, bs_h=bs_h)
+        return out, planes
+
+    def _quad64(self, y, u, v, qp: int, is_idr: bool):
+        """CTB64 device encode, its trees on the host, and deblocking on
+        the 8-sample grid with the trees' bS maps: ({"trees"}, planes)."""
+        cfg = self.cfg
+        w, h = cfg.width, cfg.height
+        if is_idr:
+            dev = encode_frame_intra64_fast(y, u, v, qp, width=w, height=h)
+            trees = quad_trees_from_device64(dev, w, h)
+
+            def bs_maps():  # bS 2 on every CU / TU edge
+                return (*quad_bs_maps(trees, w, h, cfg.ctb_log2), 0)
+        else:
+            dev = encode_frame_p64_fast(y, u, v, *self._ref, qp, width=w, height=h,
+                                        merge_cand=cfg.merge_cand)
+            trees = quad_p64_trees_from_device(dev, w, h)
+
+            def bs_maps():  # per 4-sample segment, from the 4x4-cell maps
+                cells = quad_p_cell_maps(trees, w, h, ctb=64)
+                return (*quad_p_bs_maps(trees, *cells, w, h, ctb=64), 4)
+        planes = dev["recon_y"], dev["recon_u"], dev["recon_v"]
+        if cfg.deblocking_enabled:
+            bv, bh, rep = bs_maps()
+            planes = deblock_frame(*planes, qp, spacing=8,
+                                   bs_v=torch.as_tensor(bv, device=self.device),
+                                   bs_h=torch.as_tensor(bh, device=self.device),
+                                   chroma_every=2, bs_rep=rep)
+        return {"trees": trees}, planes
 
     def _sao(self, y, u, v, ry, ru, rv, qp: int):
         """SAO on the deblocked planes: luma decided at the CTB size, Cb and
@@ -183,7 +240,16 @@ class Encoder:
             typ, aux, offs = (t.cpu().numpy() for t in ctx["sao"])
             sao_state = SaoState(cfg.ctbs_w, cfg.ctbs_h, typ=typ, aux=aux, offs=offs)
         entry_offsets = None
-        if ctx["kind"] == "idr":
+        if ctx["kind"] == "quad":
+            payload = encode_slice_data_intra_quad(cfg, out["trees"], slice_qp=qp,
+                                                   sao=sao_state)
+            sh = SliceHeader(slice_type=2, qp=qp, nal_type=NalType.IDR_W_RADL,
+                             sao_luma=cfg.sao_enabled, sao_chroma=cfg.sao_enabled)
+        elif ctx["kind"] == "quad_p":
+            payload = encode_slice_data_p_quad(cfg, out["trees"], slice_qp=qp, sao=sao_state,
+                                               merge_k=cfg.merge_cand)
+            sh = self._p_header(qp, ctx["poc"])
+        elif ctx["kind"] == "idr":
             arrays = (host("mode"), host("lev_y"), host("lev_cb"), host("lev_cr"))
             if cfg.wpp:
                 payload, entry_offsets = encode_slice_data_intra_wpp(
@@ -203,12 +269,7 @@ class Encoder:
                     cfg, *arrays, slice_qp=qp, sao=sao_state, **merge_kw)
             else:
                 payload = encode_slice_data_p(cfg, *arrays, slice_qp=qp, **merge_kw)
-            sh = SliceHeader(
-                slice_type=1, qp=qp, nal_type=NalType.TRAIL_R,
-                pic_order_cnt_lsb=ctx["poc"] % (1 << cfg.log2_max_poc_lsb),
-                num_negative_pics=1, delta_pocs=(-1,),
-                max_num_merge_cand=cfg.merge_cand,
-                sao_luma=cfg.sao_enabled, sao_chroma=cfg.sao_enabled)
+            sh = self._p_header(qp, ctx["poc"])
         if entry_offsets:
             entry_offsets = ebsp_entry_offsets(payload, entry_offsets)
         w = compose_slice_header(cfg, sh, entry_offsets)
@@ -216,3 +277,12 @@ class Encoder:
         stream = self.headers() if ctx["first"] else b""
         stream += compose_nal(NalUnit(sh.nal_type, w.data()))
         return stream, tuple(p.cpu().numpy() for p in crop_display(cfg, *ctx["recon"]))
+
+    def _p_header(self, qp: int, poc: int) -> SliceHeader:
+        cfg = self.cfg
+        return SliceHeader(
+            slice_type=1, qp=qp, nal_type=NalType.TRAIL_R,
+            pic_order_cnt_lsb=poc % (1 << cfg.log2_max_poc_lsb),
+            num_negative_pics=1, delta_pocs=(-1,),
+            max_num_merge_cand=cfg.merge_cand,
+            sao_luma=cfg.sao_enabled, sao_chroma=cfg.sao_enabled)

@@ -14,8 +14,8 @@ checked element for element against it in tests/test_torch_ops.py:
 * `a + b * c` inside one fused kernel becomes a single fused multiply-add
   (`fma`, emulated in float64 with the sum rounded to odd, so that the
   final rounding to float32 is the only one).
-* the 256-term row sum of the intra rate estimate is split into eight
-  32-term windows, each summed in order, then the eight partials in order
+* the 256- and 1024-term row sums of the intra rate estimate are split
+  into 32-term windows, each summed in order, then the partials in order
   (`bits_row_sum`).
 """
 
@@ -114,18 +114,18 @@ def fma(a, b, c):
 
 
 def bits_row_sum(lev):
-    """Sum over the last dim (256) of where(lev != 0, bits_of(lev), 0), in
-    the reference's order: eight in-order 32-term window sums, then the
-    eight partials in order."""
+    """Sum over the last dim (256 or 1024) of where(lev != 0, bits_of(lev),
+    0), in the reference's order: in-order 32-term window sums, then the
+    window partials in order."""
     k = lev.shape[-1]
-    if k != 256:
-        raise ValueError(f"bits_row_sum expects 256 terms, got {k}")
+    if k not in (256, 1024):
+        raise ValueError(f"bits_row_sum expects 256 or 1024 terms, got {k}")
     terms = torch.where(lev != 0, bits_of(lev), 0.0)
-    w = terms.reshape(lev.shape[:-1] + (8, 32))
+    w = terms.reshape(lev.shape[:-1] + (k // 32, 32))
     part = w[..., 0]
     for i in range(1, 32):
         part = part + w[..., i]
     total = part[..., 0]
-    for i in range(1, 8):
+    for i in range(1, k // 32):
         total = total + part[..., i]
     return total

@@ -1,9 +1,12 @@
 """In-loop deblocking filter (H.265 8.7.2), whole picture at once
-(counterpart of kvazzup_tpu/ops/deblock.py, uniform-CU form).
+(counterpart of kvazzup_tpu/ops/deblock.py).
 
 All vertical edges are filtered first, then all horizontal edges on the
 result, each as one batched expression over (edges x lines).  Boundary
-strength is uniform along each CTB edge (CU == TU == PU == CTB).
+strengths come per edge and block of `spacing` samples (the CTB16 path:
+uniform along each CTB edge), or per 4-sample segment (`bs_rep=4`, the
+quadtree P pictures); the quadtree paths filter on the 8-sample grid,
+where chroma takes every second edge (`chroma_every=2`).
 """
 
 from __future__ import annotations
@@ -165,22 +168,34 @@ def _filter_plane(p, bs_v, bs_h, spacing: int, taps: int, edge_fn):
     return p
 
 
-def deblock_frame(y, u, v, qp: int, *, spacing: int = 16, bs_v=None, bs_h=None):
+def deblock_frame(y, u, v, qp: int, *, spacing: int = 16, bs_v=None, bs_h=None,
+                  chroma_every: int = 1, bs_rep: int = 0, qp_map=None, bd: int = 8):
     """Deblock one 8-bit picture with a uniform slice QP, zero beta/tc and
     chroma QP offsets, and per-edge bS maps (None = every edge bS 2).
-    y: (H, W) uint8; u, v: (H/2, W/2).  Returns the filtered planes as uint8."""
+
+    y: (H, W) uint8; u, v: (H/2, W/2).  bs_v: (n_v_edges, H / rep), bs_h:
+    (n_h_edges, W / rep) with rep = bs_rep or spacing.  Chroma filters
+    every `chroma_every`-th edge (its 8-sample grid) where bS is 2; with
+    4-sample bS it takes the larger of each luma pair.  Returns the
+    filtered planes as uint8.  Per-block QP maps and bit depths other
+    than 8 are not ported."""
+    if qp_map is not None:
+        raise NotImplementedError("deblocking with a per-block QP map is not ported")
+    if bd != 8:
+        raise NotImplementedError(f"deblocking at bit depth {bd} is not ported (8 only)")
     mx = 255
     dev = y.device
     qp = int(qp)
     beta = int(BETA_TABLE[min(max(int(qp), 0), 51)])
+    rep = bs_rep or spacing  # bS granularity along an edge
 
     def full_bs(n_edges, n_blocks):
         return torch.full((n_edges, n_blocks), 2, dtype=torch.int32, device=dev)
 
     def luma_edges(slabs, bs, vertical):
         if bs is None:
-            bs = full_bs(slabs.shape[0], slabs.shape[1] // spacing)
-        bs_l = bs.repeat_interleave(spacing, dim=1)
+            bs = full_bs(slabs.shape[0], slabs.shape[1] // rep)
+        bs_l = bs.repeat_interleave(rep, dim=1)
         tc = _tc_of((qp + 2 * (bs_l.clamp(min=1) - 1)).clamp(0, 53))
         beta_l = torch.full_like(tc, beta)
         return _luma_edge_filter(slabs, beta_l, tc, bs_l > 0, mx)
@@ -195,7 +210,10 @@ def deblock_frame(y, u, v, qp: int, *, spacing: int = 16, bs_v=None, bs_h=None):
         def edges(slabs, bs, vertical):
             if bs is None:
                 bs = full_bs(slabs.shape[0], slabs.shape[1] // sp)
-            gate = (bs == 2).repeat_interleave(sp, dim=1)
+            elif rep != spacing:
+                bs = torch.maximum(bs[:, 0::2], bs[:, 1::2])
+            on_grid = (torch.arange(1, bs.shape[0] + 1, device=dev) % chroma_every) == 0
+            gate = ((bs == 2) & on_grid[:, None]).repeat_interleave(sp, dim=1)
             tct = torch.full(gate.shape, tc_c, dtype=torch.int32, device=dev)
             return _chroma_edge_filter(slabs, tct, gate, mx)
 

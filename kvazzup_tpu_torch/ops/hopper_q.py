@@ -2,11 +2,14 @@
 residual chain, with their plain PyTorch versions.
 
 Counterpart of `kvazzup_tpu/ops/pallas_q.py` (the three Pallas kernels of
-the CTB16 path).  The CUDA sources are `csrc/q_kernels.cu` (SATD, quant,
-dequant) and `csrc/resid_kernels.cu` (`code_residual_rows` /
-`code_residual_wave`: transform, quant, dequant, inverse transform and
-reconstruction in one launch, the encoder's route to quant and dequant),
-built by `runtime.build_kernels`.
+the encode paths).  The CUDA sources are `csrc/q_kernels.cu` (SATD,
+quant, dequant) and `csrc/resid_kernels.cu` (transform, quant, dequant,
+inverse transform and reconstruction of 8x8 and 16x16 blocks in one
+launch), built by `runtime.build_kernels`.  `code_residual_rows` /
+`code_residual_planes` route each plane by its block size: 8x8 and 16x16
+blocks through the fused kernel (all such planes of a call in one
+launch), 32x32 blocks (the CTB64 path's TU32s) through the matmul
+transforms around the `kvz_quant` and `kvz_dequant` launches.
 
 Dispatch is by device only: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel (and raises if the library cannot be built or
@@ -26,7 +29,8 @@ from . import ctu_kernels as ck
 from .satd import _satd_tile
 
 LAUNCHES = {"quant": 0, "dequant": 0, "satd": 0, "residual": 0}
-RESIDUAL_MAX_SAMPLES = 384  # per row over the planes of one launch (its threads)
+RESIDUAL_MAX_SAMPLES = 512  # per row over the planes of one launch (its threads)
+FUSED_LOG2 = (3, 4)  # block sizes of the fused residual kernel; 5 takes quant + dequant
 
 
 def reset_launches() -> None:
@@ -81,14 +85,9 @@ def satd_rows_plain(a, b, log2: int, group: int = 1):
     return _satd_tile(d, bs).sum(dim=(1, 2)).to(torch.int32)
 
 
-def code_residual_rows_plain(orig, pred, qp, intra, log2: int, bd: int = 8,
-                            group: int = 1):
-    """Forward transform -> quant -> dequant -> inverse transform -> recon.
-
-    pred (R, N^2) int32; orig (R / group, N^2) int32 and qp (R / group,)
-    int32 pair with rows r of pred with r // group; intra is a bool for
-    every row or an (R / group,) bool tensor.  Returns (levels, recon),
-    both (R, N^2) int32."""
+def _residual_chain(orig, pred, qp, intra, log2: int, bd: int, group: int, quant, dequant):
+    """Forward transform -> quant -> dequant -> inverse transform -> recon
+    with the given quant / dequant row functions (plain or kernel)."""
     if group > 1:
         orig, qp = orig.repeat_interleave(group, 0), qp.repeat_interleave(group)
         if torch.is_tensor(intra):
@@ -98,9 +97,21 @@ def code_residual_rows_plain(orig, pred, qp, intra, log2: int, bd: int = 8,
     else:
         dz = torch.full_like(qp, 171 if intra else 85)
     coef = ck.fwd_transform_flat(orig - pred, log2, bd=bd)
-    lev = quantize_rows_plain(coef, qp, dz, log2, bd)
-    res = ck.inv_transform_flat(dequantize_rows_plain(lev, qp, log2, bd), log2, bd=bd)
+    lev = quant(coef, qp, dz, log2, bd)
+    res = ck.inv_transform_flat(dequant(lev, qp, log2, bd), log2, bd=bd)
     return lev, (pred + res).clamp(0, (1 << bd) - 1)
+
+
+def code_residual_rows_plain(orig, pred, qp, intra, log2: int, bd: int = 8,
+                            group: int = 1):
+    """Forward transform -> quant -> dequant -> inverse transform -> recon.
+
+    pred (R, N^2) int32; orig (R / group, N^2) int32 and qp (R / group,)
+    int32 pair with rows r of pred with r // group; intra is a bool for
+    every row or an (R / group,) bool tensor.  Returns (levels, recon),
+    both (R, N^2) int32."""
+    return _residual_chain(orig, pred, qp, intra, log2, bd, group, quantize_rows_plain,
+                           dequantize_rows_plain)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -146,8 +157,8 @@ def satd_rows(a, b, log2: int, group: int = 1):
     """Hadamard SATD of (R, N^2) blocks against (R / group, N^2) blocks
     (row r of `a` pairs with row r // group of `b`)."""
     n2 = 1 << (2 * log2)
-    if log2 not in (2, 3, 4, 5):
-        raise ValueError(f"satd: log2 must be 2..5, got {log2}")
+    if log2 not in (2, 3, 4, 5, 6):
+        raise ValueError(f"satd: log2 must be 2..6, got {log2}")
     runtime.check_operand(a, "a", 2)
     rows = a.shape[0]
     if group < 1 or rows % group:
@@ -171,8 +182,8 @@ def satd_rows(a, b, log2: int, group: int = 1):
 def _residual_plane(orig, pred, qp, log2: int, group: int, name: str, rows=None) -> int:
     """Check one plane's operands of the residual kernel, each once; its
     row count (`rows` when given, else pred's)."""
-    if log2 not in (3, 4):
-        raise ValueError(f"residual {name}: log2 must be 3 or 4, got {log2}")
+    if log2 not in (3, 4, 5):
+        raise ValueError(f"residual {name}: log2 must be 3, 4 or 5, got {log2}")
     if rows is None:
         rows = pred.shape[0] if pred.ndim else 0
     n2 = 1 << (2 * log2)
@@ -216,39 +227,50 @@ def code_residual_rows(orig, pred, qp, intra, log2: int, bd: int = 8, group: int
     predictions `pred` against `orig`, as `code_residual_rows_plain`.
 
     qp is (R / group,) int32; intra a bool (the deadzone of every row) or an
-    (R / group,) bool tensor.  log2 is 3 or 4, bd 8."""
+    (R / group,) bool tensor.  log2 is 3, 4 (one fused launch) or 5 (the
+    32x32 route: one quant and one dequant launch), bd 8."""
     rows = _residual_plane(orig, pred, qp, log2, group, "plane")
     flags, dz = _residual_intra(intra, rows // group, bd)
     if not runtime.kernel_route(orig, pred, qp, *(() if flags is None else (flags,))):
         return code_residual_rows_plain(orig, pred, qp, intra, log2, bd, group)
+    if log2 not in FUSED_LOG2:  # 32x32: the matmul transforms around two launches
+        return _residual_chain(orig, pred, qp, intra, log2, bd, group, quantize_rows,
+                               dequantize_rows)
     lev, rec = torch.empty_like(pred), torch.empty_like(pred)
     _launch_residual([(orig, pred, qp, lev, rec, rows, log2)], flags, group, dz)
     return lev, rec
 
 
-def code_residual_wave(luma, cb, cr, intra):
-    """Residual coding of a wave's three planes in one launch.
+def code_residual_planes(planes, intra):
+    """Residual coding of up to three planes over the same R rows (a
+    unit's luma, Cb and Cr): the 8x8 and 16x16 planes in one fused launch,
+    each 32x32 plane through the quant + dequant route.
 
-    Each plane is (orig, pred, qp, log2) over the same R lanes, as for
-    `code_residual_rows` with group 1; intra (a bool or an (R,) bool
-    tensor) is shared by the planes.  Returns [(levels, recon)] per plane:
+    Each plane is (orig, pred, qp, log2), as for `code_residual_rows` with
+    group 1; intra (a bool or an (R,) bool tensor) is shared by the planes.
+    Returns [(levels, recon)] per plane, in order; the fused planes' are
     views of one int32 buffer."""
-    planes = (luma, cb, cr)
-    n2s = [1 << (2 * lg) for *_, lg in planes]
+    rows = planes[0][1].shape[0] if planes[0][1].ndim else 0
+    for k, (o, p, q, lg) in enumerate(planes):
+        _residual_plane(o, p, q, lg, 1, f"plane {k}", rows)
+    fused = [k for k, (*_, lg) in enumerate(planes) if lg in FUSED_LOG2]
+    n2s = [1 << (2 * planes[k][3]) for k in fused]
     if sum(n2s) > RESIDUAL_MAX_SAMPLES:
-        raise ValueError(f"residual wave: more than {RESIDUAL_MAX_SAMPLES} samples per row")
-    rows = luma[1].shape[0] if luma[1].ndim else 0
-    for (o, p, q, lg), name in zip(planes, ("luma", "cb", "cr")):
-        _residual_plane(o, p, q, lg, 1, name, rows)
+        raise ValueError(f"residual: more than {RESIDUAL_MAX_SAMPLES} samples per row")
     flags, dz = _residual_intra(intra, rows, 8)
     tensors = [t for o, p, q, _ in planes for t in (o, p, q)]
     if not runtime.kernel_route(*tensors, *(() if flags is None else (flags,))):
         return [code_residual_rows_plain(o, p, q, intra, lg) for o, p, q, lg in planes]
-    buf = torch.empty(2 * rows * sum(n2s), dtype=torch.int32, device=luma[1].device).split(
-        [rows * n2 for n2 in n2s for _ in (0, 1)])
-    outs = [(buf[2 * k].view(rows, n2), buf[2 * k + 1].view(rows, n2))
-            for k, n2 in enumerate(n2s)]
-    _launch_residual([(o, p, q, lev, rec, rows, lg)
-                      for (o, p, q, lg), (lev, rec) in zip(planes, outs)],
-                     flags, 1, dz)
+    outs = [None] * len(planes)
+    if fused:
+        buf = torch.empty(2 * rows * sum(n2s), dtype=torch.int32,
+                          device=planes[0][1].device).split(
+            [rows * n2 for n2 in n2s for _ in (0, 1)])
+        for j, (k, n2) in enumerate(zip(fused, n2s)):
+            outs[k] = (buf[2 * j].view(rows, n2), buf[2 * j + 1].view(rows, n2))
+        _launch_residual([(*planes[k][:3], *outs[k], rows, planes[k][3]) for k in fused],
+                         flags, 1, dz)
+    for k, (o, p, q, lg) in enumerate(planes):
+        if outs[k] is None:
+            outs[k] = _residual_chain(o, p, q, intra, lg, 8, 1, quantize_rows, dequantize_rows)
     return outs

@@ -5,7 +5,7 @@ Every call runs the hand kernels of `hopper_q` on a CUDA tensor, whatever
 its shape: coefficients are viewed as rows of the last dimension, with qp
 (and the intra/inter deadzone) given per row.  RDOQ is not ported.  The
 encoder does not call these: it quantizes inside the fused residual kernel
-(`hopper_q.code_residual_rows` / `code_residual_wave`).
+(`hopper_q.code_residual_rows` / `code_residual_planes`).
 """
 
 from __future__ import annotations

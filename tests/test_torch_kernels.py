@@ -56,7 +56,7 @@ def test_kernels_match_plain_on_gpu():
         assert torch.equal(got.cpu(), thq.dequantize_rows_plain(coef, qp, log2))
     # every block size, with and without the broadcast original, at row
     # counts that leave a CTA or a warp part empty; extreme differences
-    for log2 in (2, 3, 4, 5):
+    for log2 in (2, 3, 4, 5, 6):
         k = 1 << (2 * log2)
         for rows, group in ((350, 35), (350, 1), (33, 11), (1, 1)):
             a = T(rng.integers(0, 256, (rows, k)).astype(np.int32))
@@ -178,3 +178,57 @@ def test_sao_three_plane_launch_matches_plain_on_gpu():
         assert sao.LAUNCHES == {"sao": 1}
         for (rec, typ, aux, offs, ctb), g in zip(planes, got):
             assert torch.equal(g.cpu(), sao.sao_apply_plain(rec, typ, aux, offs, ctb=ctb))
+
+
+def test_quad_residual_routes_take_plain_path_on_cpu():
+    """The CTB64 path's residual forms on the CPU: a TU32 plane and a
+    unit's luma + Cb + Cr (32x32 + two 16x16) launch nothing, and equal
+    the plain chain."""
+    thq.reset_launches()
+    rng = np.random.default_rng(8)
+    planes = [(T(rng.integers(0, 256, (5, 1 << (2 * lg))).astype(np.int32)),
+               T(rng.integers(0, 256, (5, 1 << (2 * lg))).astype(np.int32)),
+               T(rng.integers(0, 52, (5,)).astype(np.int32)), lg) for lg in (5, 4, 4)]
+    flags = T(rng.integers(0, 2, (5,)).astype(bool))
+    got = thq.code_residual_planes(planes, flags)
+    for (o, p, q, lg), (lev, rec) in zip(planes, got):
+        want = thq.code_residual_rows_plain(o, p, q, flags, lg)
+        assert torch.equal(lev, want[0]) and torch.equal(rec, want[1])
+    assert thq.LAUNCHES == {"quant": 0, "dequant": 0, "satd": 0, "residual": 0}
+    with pytest.raises(ValueError):  # three 16x16 planes: 768 samples a row
+        thq.code_residual_planes([planes[1]] * 3, True)
+
+
+@pytest.mark.cuda
+def test_quad_residual_routes_match_plain_on_gpu():
+    """TU32s through kvz_quant + kvz_dequant (intra flag per row and per
+    call, group > 1), and one kvz_code_residual launch over two 16x16
+    chroma planes (512 threads), element-identical to the plain chain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels are CUDA C++ for sm_90a)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+    rows, group = 96, 3
+    orig = T(rng.integers(0, 256, (rows // group, 1024)).astype(np.int32))
+    pred = T(rng.integers(0, 256, (rows, 1024)).astype(np.int32))
+    qp = T(rng.integers(0, 52, (rows // group,)).astype(np.int32))
+    flags = T(rng.integers(0, 2, (rows // group,)).astype(bool))
+    for intra in (True, False, flags):
+        thq.reset_launches()
+        got = thq.code_residual_rows(orig.to(dev), pred.to(dev), qp.to(dev),
+                                     intra.to(dev) if torch.is_tensor(intra) else intra, 5,
+                                     group=group)
+        want = thq.code_residual_rows_plain(orig, pred, qp, intra, 5, group=group)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        assert thq.LAUNCHES == {"quant": 1, "dequant": 1, "satd": 0, "residual": 0}
+    planes = [(T(rng.integers(0, 256, (40, 1 << (2 * lg))).astype(np.int32)),
+               T(rng.integers(0, 256, (40, 1 << (2 * lg))).astype(np.int32)),
+               T(rng.integers(0, 52, (40,)).astype(np.int32)), lg) for lg in (5, 4, 4)]
+    flags = T(rng.integers(0, 2, (40,)).astype(bool))
+    thq.reset_launches()
+    got = thq.code_residual_planes([(o.to(dev), p.to(dev), q.to(dev), lg)
+                                    for o, p, q, lg in planes], flags.to(dev))
+    assert thq.LAUNCHES == {"quant": 1, "dequant": 1, "satd": 0, "residual": 1}
+    for (o, p, q, lg), (lev, rec) in zip(planes, got):
+        want = thq.code_residual_rows_plain(o, p, q, flags, lg)
+        assert torch.equal(lev.cpu(), want[0]) and torch.equal(rec.cpu(), want[1])

@@ -1,5 +1,5 @@
 """The port's fused residual coding (kvazzup_tpu_torch/ops/hopper_q.py
-`code_residual_rows` / `code_residual_wave`, kernel `kvz_code_residual` in
+`code_residual_rows` / `code_residual_planes`, kernel `kvz_code_residual` in
 csrc/resid_kernels.cu) against the JAX reference's chains.
 
 The same seeded numpy inputs go through the reference and the port's plain
@@ -149,7 +149,7 @@ def test_wave_equals_three_plane_calls(intra):
     planes = _wave(rng, lanes)
     flags = T(rng.integers(0, 2, lanes).astype(bool)) if intra == "mixed" else intra
     thq.reset_launches()
-    got = thq.code_residual_wave(*planes, flags)
+    got = thq.code_residual_planes(planes, flags)
     assert len(got) == 3
     for (lev, rec), (o, p, q, log2) in zip(got, planes):
         want_lev, want_rec = thq.code_residual_rows(o, p, q, flags, log2)
@@ -175,7 +175,7 @@ def test_wrappers_raise_on_bad_operands():
         thq.code_residual_rows(o[:2].contiguous(), p, q[:2].contiguous(), True, 3, group=4)
     with pytest.raises(ValueError):  # contiguity
         thq.code_residual_rows(o, p.t().contiguous().t(), q, True, 3)
-    for log2 in (2, 5):  # block sizes without a kernel
+    for log2 in (2, 6):  # block sizes without a kernel or route
         k = 1 << (2 * log2)
         blk = T(np.zeros((6, k), np.int32))
         with pytest.raises(ValueError):
@@ -186,13 +186,13 @@ def test_wrappers_raise_on_bad_operands():
         thq.code_residual_rows(o, p.to("meta"), q, True, 3)
     planes = _wave(rng, 4)
     with pytest.raises(ValueError):
-        thq.code_residual_wave(planes[0], planes[1], (planes[2][0].to("meta"),) + planes[2][1:],
-                               True)
+        thq.code_residual_planes([planes[0], planes[1],
+                                  (planes[2][0].to("meta"),) + planes[2][1:]], True)
     with pytest.raises(ValueError):  # three luma planes: 768 samples a row
-        thq.code_residual_wave(planes[0], planes[0], planes[0], True)
+        thq.code_residual_planes([planes[0], planes[0], planes[0]], True)
     with pytest.raises(ValueError):  # planes over different lane counts
         short = tuple(t[:3].contiguous() for t in planes[2][:3]) + (3,)
-        thq.code_residual_wave(planes[0], planes[1], short, True)
+        thq.code_residual_planes([planes[0], planes[1], short], True)
 
 
 @pytest.mark.cuda
@@ -205,9 +205,9 @@ def test_residual_kernel_matches_plain_on_gpu():
     planes = _wave(rng, lanes)
     for intra in (True, False, T(rng.integers(0, 2, lanes).astype(bool))):
         thq.reset_launches()
-        got = thq.code_residual_wave(*[(o.to(dev), p.to(dev), q.to(dev), lg)
-                                       for o, p, q, lg in planes],
-                                     intra.to(dev) if torch.is_tensor(intra) else intra)
+        got = thq.code_residual_planes([(o.to(dev), p.to(dev), q.to(dev), lg)
+                                        for o, p, q, lg in planes],
+                                       intra.to(dev) if torch.is_tensor(intra) else intra)
         torch.cuda.synchronize()
         assert thq.LAUNCHES["residual"] == 1
         for (lev, rec), (o, p, q, lg) in zip(got, planes):

@@ -3,7 +3,7 @@ the P wave's plain merge search (CPU).
 
     python tools/torch_op_count.py
 
-Runs `hopper_q.code_residual_wave` (one wave: a 16x16 luma and two 8x8
+Runs `hopper_q.code_residual_planes` (one wave: a 16x16 luma and two 8x8
 chroma blocks per lane), the IDR mode prepass's `code_residual_rows`
 (`group=3`) and `merge.merge_search_plain` at 1, 3 and 5 merge candidates
 (luma MC, SATD, cost and argmin of one wave) on CPU tensors, which take
@@ -59,9 +59,9 @@ def main() -> int:
         (pix(lanes, 64), pix(lanes, 64), pix(lanes), 3) for _ in range(2)]
     flags = torch.rand(lanes, generator=gen) > 0.5
     counts = {
-        "wave, intra": leaf_ops(lambda: hopper_q.code_residual_wave(*planes, True)),
+        "wave, intra": leaf_ops(lambda: hopper_q.code_residual_planes(planes, True)),
         "wave, per-lane intra flags": leaf_ops(
-            lambda: hopper_q.code_residual_wave(*planes, flags)),
+            lambda: hopper_q.code_residual_planes(planes, flags)),
         "IDR prepass, group 3": leaf_ops(lambda: hopper_q.code_residual_rows(
             pix(lanes, 256), pix(3 * lanes, 256), pix(lanes), True, 4, group=3)),
     }

@@ -1,9 +1,10 @@
 """Where the time goes in the PyTorch port's 1080p low-delay encode (GPU).
 
-    python tools/torch_profile.py [--width 1920 --height 1080 --qp 32]
+    python tools/torch_profile.py [--width 1920 --height 1080 --qp 32] [--ctu 16|64]
 
 Warms up on a throwaway encoder (IDR + P), then for one IDR and one P
-frame of `synthetic_frames(W, H, 3, seed=12)`:
+frame of `synthetic_frames(W, H, 3, seed=12)` at CTB 16 (default) or the
+CTB64 quadtree (`--ctu 64`, with SAO):
   * times each stage with the host clock around work that ends in
     torch.cuda.synchronize() (prepasses, the wave loop, deblocking, and
     the `--sao` path's SAO decisions and application on the deblocked IDR
@@ -30,7 +31,8 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from kvazzup_tpu_torch import runtime  # noqa: E402
-from kvazzup_tpu_torch.encoder import frame_inter, frame_intra  # noqa: E402
+from kvazzup_tpu_torch.encoder import frame_inter, frame_intra, frame_intra64  # noqa: E402
+from kvazzup_tpu_torch.encoder.wavefront import schedule_r  # noqa: E402
 from kvazzup_tpu_torch.encoder.top import Encoder, pad_to_coded  # noqa: E402
 from kvazzup_tpu_torch.inputs import stream_config, synthetic_frames  # noqa: E402
 from kvazzup_tpu_torch.ops import mc  # noqa: E402
@@ -85,8 +87,11 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--qp", type=int, default=32)
+    ap.add_argument("--ctu", type=int, choices=(16, 64), default=16)
     args = ap.parse_args(argv)
     dev = runtime.require_cuda()
+    if args.ctu == 64:
+        return profile_ctb64(args, dev)
     cfg = stream_config(args.width, args.height, qp=args.qp)
     w, h, qp = cfg.width, cfg.height, cfg.qp
     raw = synthetic_frames(args.width, args.height, 3, seed=12)
@@ -98,8 +103,9 @@ def main(argv=None) -> int:
     qp_rows, _, lam_rows, oy, _, _ = frame_intra.frame_setup(y, u, v, qp, nctu)
 
     stages = {}
-    _, stages["idr_mode_prepass"] = timed(lambda: frame_intra.intra_mode_prepass(
-        y, oy, qp_rows, lam_rows, width=w, height=h))
+    oy_flat = oy.reshape(nctu, -1)
+    _, stages["idr_mode_prepass"] = timed(lambda: frame_intra.rd_prepass_grid(
+        y, oy_flat, qp_rows, lam_rows, log2=4, cw=cfg.ctbs_w, ch=cfg.ctbs_h))
     out_i, stages["idr_total"] = timed(lambda: frame_intra.encode_frame_intra_fast(
         y, u, v, qp, width=w, height=h))
     stages["idr_wave_loop"] = stages["idr_total"] - stages["idr_mode_prepass"]
@@ -124,8 +130,8 @@ def main(argv=None) -> int:
     lam_x1k = int(frame_intra.LAMBDA_X1K[qp])
     _, stages["p_motion_search"] = timed(lambda: motion_search(
         y, ref[0], lam_x1k, width=w, height=h))
-    _, stages["p_intra_cost_prepass"] = timed(lambda: frame_intra.intra_cost_prepass(
-        y, oy, lam_rows, width=w, height=h))
+    _, stages["p_intra_cost_prepass"] = timed(lambda: frame_intra.cost_prepass_grid(
+        y, oy_flat, lam_rows, log2=4, cw=cfg.ctbs_w, ch=cfg.ctbs_h))
     _, stages["p_ref_windows"] = timed(lambda: [
         mc.sheared_ref_strips(mc.edge_pad(p, pad), n, 16, cfg.ctbs_h, pad, chroma=n == 8)
         for p, n, pad in ((ref[0], 16, 24), (ref[1], 8, 12), (ref[2], 8, 12))])
@@ -137,21 +143,96 @@ def main(argv=None) -> int:
         print(f"{k:24s} {t:10.3f} ms", flush=True)
 
     enc = Encoder(cfg, intra_period=64, device=dev)
+    prof = profile_frames(cfg, (("idr", lambda: enc.encode_frame_device(*raw[0])),
+                                ("p", lambda: enc.encode_frame_device(*raw[1])),
+                                ("sao_stage", sao_stage)))
+    print(json.dumps({"card": torch.cuda.get_device_name(0), "stages_ms": stages,
+                      "profile": prof}), flush=True)
+    return 0
+
+
+def profile_frames(cfg, runs) -> dict:
+    """torch.profiler over each (kind, fn) of runs; prints and returns the
+    wall time, device events (also per wave), kernel time, busy share, top
+    kernels and hand kernels of each."""
+    n_waves = schedule_r(cfg.ctbs_w, cfg.ctbs_h)["n_waves"]
     prof = {}
-    for kind, fn in (("idr", lambda: enc.encode_frame_device(*raw[0])),
-                     ("p", lambda: enc.encode_frame_device(*raw[1])),
-                     ("sao_stage", sao_stage)):
+    for kind, fn in runs:
         wall, n, busy, top, hand = device_profile(fn)
-        prof[kind] = {"wall_ms": wall, "kernels": n, "kernel_ms": busy,
-                      "busy_share": busy / wall, "top": top, "hand_kernels": hand}
-        print(f"{kind}: wall {wall:.1f} ms, {n} kernels, kernel time {busy:.1f} ms, "
-              f"busy {100 * busy / wall:.1f}%", flush=True)
+        prof[kind] = {"wall_ms": wall, "kernels": n, "kernels_per_wave": n / n_waves,
+                      "kernel_ms": busy, "busy_share": busy / wall, "top": top,
+                      "hand_kernels": hand}
+        print(f"{kind}: wall {wall:.1f} ms, {n} kernels ({n / n_waves:.1f} per wave of "
+              f"{n_waves}), kernel time {busy:.1f} ms, busy {100 * busy / wall:.1f}%",
+              flush=True)
         for name, cnt, t in top:
             print(f"   {t:9.3f} ms {cnt:7d}x  {name}", flush=True)
         for name, (cnt, t) in sorted(hand.items()):
             print(f"   hand kernel {name}: {cnt} launches, {t:.4f} ms device, "
                   f"{t / cnt:.5f} ms each", flush=True)
-    print(json.dumps({"card": torch.cuda.get_device_name(0), "stages_ms": stages,
+    return prof
+
+
+def profile_ctb64(args, dev) -> int:
+    """The CTB64 quadtree path with SAO: prepass, wave loop, deblocking and
+    SAO stage times of an IDR and a P frame, then the profiler's view of
+    each frame's device stage."""
+    from kvazzup_tpu_torch.encoder import frame_inter64
+
+    cfg = stream_config(args.width, args.height, qp=args.qp, sao=True, ctu=64)
+    w, h, qp = cfg.width, cfg.height, cfg.qp
+    nctb = cfg.ctbs_w * cfg.ctbs_h
+    cw, ch = cfg.ctbs_w, cfg.ctbs_h
+    raw = synthetic_frames(args.width, args.height, 3, seed=12)
+    warm = Encoder(cfg, intra_period=64, device=dev)
+    ref = warm.encode_frame_device(*raw[0])["recon"]
+    warm.encode_frame_device(*raw[1])
+    y, u, v = (torch.as_tensor(p, device=dev) for p in pad_to_coded(cfg, *raw[2]))
+    yi = y.to(torch.int32)
+    qp16, _, lam16 = frame_intra64.frame_rows(qp, 16 * nctb, dev)
+    qp32, _, lam32 = frame_intra64.frame_rows(qp, 4 * nctb, dev)
+    qp64, _, lam64 = frame_intra64.frame_rows(qp, nctb, dev)
+    oy16 = frame_intra.to_blocks(yi, 16).reshape(-1, 256)
+    oy32 = frame_intra.to_blocks(yi, 32).reshape(-1, 1024)
+
+    def idr_prepass():
+        frame_intra.rd_prepass_grid(yi, oy16, qp16, lam16, log2=4, cw=4 * cw, ch=4 * ch)
+        sweep = frame_intra.mode_sweep(yi, oy32, lam32, 2 * cw, 2 * ch, None, 5)
+        frame_intra.rd_prepass_grid(yi, oy32, qp32, lam32, log2=5, cw=2 * cw, ch=2 * ch,
+                                    sweep=sweep)
+        frame_intra64.rd64_prepass(sweep, oy32, qp64, lam64, cw64=cw, ch64=ch)
+
+    stages = {}
+    _, stages["idr64_prepasses"] = timed(idr_prepass)
+    _, stages["idr64_total"] = timed(lambda: frame_intra64.encode_frame_intra64_fast(
+        y, u, v, qp, width=w, height=h))
+    stages["idr64_wave_loop_and_rest"] = stages["idr64_total"] - stages["idr64_prepasses"]
+    enc = Encoder(cfg, intra_period=64, device=dev)
+    ctx, stages["idr64_device_stage"] = timed(lambda: enc.encode_frame_device(*raw[2]))
+    lam_x1k = int(frame_intra.LAMBDA_X1K[qp])
+    _, stages["p64_motion_search_64_32_16"] = timed(lambda: [motion_search(
+        y, ref[0], lam_x1k, block=b, width=w, height=h) for b in (64, 32, 16)])
+    _, stages["p64_intra_estimates_32_16"] = timed(lambda: [
+        frame_intra.cost_prepass_grid(yi, oy32, lam32, log2=5, cw=2 * cw, ch=2 * ch),
+        frame_intra.cost_prepass_grid(yi, oy16, lam16, log2=4, cw=4 * cw, ch=4 * ch)])
+    _, stages["p64_total"] = timed(lambda: frame_inter64.encode_frame_p64_fast(
+        y, u, v, *ref, qp, width=w, height=h))
+    stages["p64_wave_loop_and_rest"] = (stages["p64_total"]
+                                        - stages["p64_motion_search_64_32_16"]
+                                        - stages["p64_intra_estimates_32_16"])
+    _, stages["p64_device_stage"] = timed(lambda: enc.encode_frame_device(*raw[1]))
+    db = ctx["recon"]
+    lam = sao_lambda(qp)
+    _, stages["sao_decide_luma_ctb64"] = timed(lambda: sao_decide(y, db[0], lam, ctb=64))
+    _, stages["sao_decide_chroma_ctb32"] = timed(lambda: sao_decide_chroma(
+        u, db[1], v, db[2], lam, ctb=32))
+    for k, t in stages.items():
+        print(f"{k:28s} {t:10.3f} ms", flush=True)
+
+    enc = Encoder(cfg, intra_period=64, device=dev)
+    prof = profile_frames(cfg, (("idr64", lambda: enc.encode_frame_device(*raw[0])),
+                                ("p64", lambda: enc.encode_frame_device(*raw[1]))))
+    print(json.dumps({"card": torch.cuda.get_device_name(0), "ctu": 64, "stages_ms": stages,
                       "profile": prof}), flush=True)
     return 0
 
