@@ -9,22 +9,27 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      apply, the P wave's merge search) against its plain PyTorch version on
      the card at the 1080p main-path shapes of the CTB16 and CTB64 paths
      (SATD also at 4x4, 8x8, 32x32 and 64x64 blocks; quant and dequant at
-     the CTB64 path's 32x32 transform shapes; the residual kernel over a
-     CU32's two 16x16 chroma blocks (512 threads); the merge search at 1, 3
-     and 5 candidates with MVs that leave the window and tied costs; SAO
-     over three planes in one launch at CTB 16 and 64 and one plane at a
-     time), element-identical (tolerance 0; float32 outputs bit for bit),
-     plus first-index tie-breaking of argmin, stable sort and its top-k;
-  3. three 1920x1080 IDR + 3 P encodes of synthetic_frames(1920, 1080, 4,
+     the CTB64 path's 32x32 transform shapes; SATD at the CTB64 wave's
+     arbitration shapes with 1 and 5 merge candidates; the residual kernel
+     over a CU32's two 16x16 chroma blocks (512 threads); the merge search
+     at 1, 3 and 5 candidates with MVs that leave the window and tied
+     costs; SAO over three planes in one launch at CTB 16 and 64, one plane
+     at a time, and at bit depths 8 and 10 on planes that are no CTB
+     multiple (1080x1920 at CTB 64, 540x960 at CTB 32)), element-identical
+     (tolerance 0; float32 outputs bit for bit), plus first-index
+     tie-breaking of argmin, stable sort and its top-k;
+  3. five 1920x1080 IDR + 3 P encodes of synthetic_frames(1920, 1080, 4,
      seed=12) at QP 32 through `Encoder` on cuda: the CLI defaults,
-     `--sao` (SAO + WPP), and `--ctu 64 --sao` (the CTB64 quadtree with
-     SAO).  Each is held against its JAX golden
-     (kvazzup_tpu_torch/golden/ld_1080p_q32.json, ld_sao_1080p_q32.json,
-     ld64_sao_1080p_q32.json): per-frame bytes, stream SHA-256 and recon
-     SHA-256; each prints its per-frame device and entropy times and the
-     launch count of every kernel, counted from 0 over that encode alone;
-     every kernel the path runs must launch, exactly as often as its code
-     launches it (`expected_launches`);
+     `--sao` (SAO + WPP), `--ctu 64 --sao` (the CTB64 quadtree with SAO),
+     the JAX package's production combo `--ctu 64 --wpp --sao --merge 5
+     --tmvp`, and CTB16 `--merge 5 --tmvp`.  Each is held against its JAX
+     golden (kvazzup_tpu_torch/golden/ld_1080p_q32.json,
+     ld_sao_1080p_q32.json, ld64_sao_1080p_q32.json,
+     ld64_prod_1080p_q32.json, ld_tmvp_1080p_q32.json): per-frame bytes,
+     stream SHA-256 and recon SHA-256; each prints its per-frame device and
+     entropy times and the launch count of every kernel, counted from 0
+     over that encode alone; every kernel the path runs must launch,
+     exactly as often as its code launches it (`expected_launches`);
   4. kernel vs plain times at the main-path shapes (CUDA events around 20
      calls, the least of 5 runs: at the wave shapes this is the wrapper's
      host path per call), the kernel's own device time per call
@@ -60,7 +65,9 @@ from kvazzup_tpu_torch.ops.mc import sheared_ref_strips, strip_window_slice
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(ROOT, "kvazzup_tpu_torch", "golden")
 PATHS = (("low-delay", "ld_1080p_q32.json"), ("low-delay --sao", "ld_sao_1080p_q32.json"),
-         ("low-delay --ctu 64 --sao", "ld64_sao_1080p_q32.json"))
+         ("low-delay --ctu 64 --sao", "ld64_sao_1080p_q32.json"),
+         ("low-delay --ctu 64 --wpp --sao --merge 5 --tmvp", "ld64_prod_1080p_q32.json"),
+         ("low-delay --merge 5 --tmvp", "ld_tmvp_1080p_q32.json"))
 SOURCE = {"satd": "kvazzup_tpu_torch/csrc/q_kernels.cu",
           "quant": "kvazzup_tpu_torch/csrc/q_kernels.cu",
           "dequant": "kvazzup_tpu_torch/csrc/q_kernels.cu",
@@ -283,10 +290,14 @@ def quad64_cases(dev, rng, add):
         return t(rng.integers(0, 52, (b,)).astype(np.int32))
 
     cases = []
+    # a wave's arbitration SATDs the K merge candidates and the ME vector
+    # of its 17 lanes in one call: (K + 1) * 17 rows per CU64, CU32, CU16
+    arb = [(f"CU{1 << lg} wave K={k} ({(k + 1) * LANES64},{1 << 2 * lg})", (k + 1) * LANES64,
+            1, lg) for k in (1, 5) for lg in (6, 5, 4)]
     for label, rows, group, log2 in (("CU64 ME (510,4096)", NCTB64, 1, 6),
                                      ("IDR64 sweep (2040*35,1024) bcast", 4 * NCTB64 * 35, 35, 5),
                                      ("P64 intra (2040*11,1024) bcast", 4 * NCTB64 * 11, 11, 5),
-                                     ("CU64 wave K=1 (34,4096)", 2 * LANES64, 1, 6)):
+                                     *arb):
         a, b = pix(rows, 1 << 2 * log2), pix(rows // group, 1 << 2 * log2)
         add("satd", label, lambda a=a, b=b, g=group, lg=log2: hopper_q.satd_rows(a, b, lg, g),
             lambda a=a, b=b, g=group, lg=log2: hopper_q.satd_rows_plain(a, b, lg, g), (a, b))
@@ -329,10 +340,28 @@ def quad64_cases(dev, rng, add):
         planes.append((t(rng.integers(0, 256, (h, w)).astype(np.uint8)), t(typ_np), t(aux_np),
                        t(rng.integers(-7, 8, (cbh, cbw, 4)).astype(np.int32)), ctb))
     cases.append(("sao", "CTB64 frame: 3 planes, one launch",
-                  lambda: sao.sao_apply_planes(planes),
-                  lambda: [sao.sao_apply_plain(*p[:4], ctb=p[4]) for p in planes],
+                  lambda pl=planes: sao.sao_apply_planes(pl),
+                  lambda pl=planes: [sao.sao_apply_plain(*p[:4], ctb=p[4]) for p in pl],
                   [x for p in planes for x in p[:4]],
                   OPS_PER_ELEM["sao"] * sum(p[0].numel() for p in planes)))
+    # a 1080-row frame as a decoder holds it: no plane is a CTB multiple
+    # (1080 = 16 x 64 + 56, 540 = 16 x 32 + 28), at 8 and 10 bits a sample
+    for bd in (8, 10):
+        planes = []
+        for h, w, ctb in ((1080, 1920, 64), (540, 960, 32), (540, 960, 32)):
+            cbh, cbw = -(-h // ctb), -(-w // ctb)
+            typ_np = rng.integers(0, 3, (cbh, cbw)).astype(np.int32)
+            aux_np = np.where(typ_np == 2, rng.integers(0, 4, (cbh, cbw)),
+                              rng.integers(0, 29, (cbh, cbw))).astype(np.int32)
+            rec = rng.integers(0, 1 << bd, (h, w)).astype(np.uint8 if bd == 8 else np.uint16)
+            planes.append((t(rec), t(typ_np), t(aux_np),
+                           t(rng.integers(-7, 8, (cbh, cbw, 4)).astype(np.int32)), ctb))
+        cases.append(("sao", f"1080-row frame bd {bd}: 3 planes, one launch",
+                      lambda pl=planes, b=bd: sao.sao_apply_planes(pl, b),
+                      lambda pl=planes, b=bd: [sao.sao_apply_plain(*p[:4], ctb=p[4], bd=b)
+                                               for p in pl],
+                      [x for p in planes for x in p[:4]],
+                      OPS_PER_ELEM["sao"] * sum(p[0].numel() for p in planes)))
     return cases
 
 
@@ -444,9 +473,9 @@ def encode_1080p(dev, golden) -> tuple[list, dict]:
     gcfg = golden["config"]
     with_sao = gcfg["sao"]
     cfg = stream_config(w, h, qp=golden["qp"], merge=golden["merge_cand"], sao=with_sao,
-                        ctu=1 << gcfg["ctb_log2"])
-    if ((cfg.sao_enabled, cfg.wpp, cfg.ctb_log2)
-            != (with_sao, gcfg["wpp"], gcfg["ctb_log2"])
+                        wpp=gcfg["wpp"], tmvp=gcfg["tmvp"], ctu=1 << gcfg["ctb_log2"])
+    if ((cfg.sao_enabled, cfg.wpp, cfg.temporal_mvp, cfg.ctb_log2)
+            != (with_sao, gcfg["wpp"], gcfg["tmvp"], gcfg["ctb_log2"])
             or cfg.min_cb_log2 != gcfg.get("min_cb_log2", cfg.min_cb_log2)
             or cfg.max_tb_log2 != gcfg.get("max_tb_log2", cfg.max_tb_log2)):
         raise AssertionError(f"configuration differs from the golden's: {gcfg}")

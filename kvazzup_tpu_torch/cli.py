@@ -3,11 +3,12 @@
 
     python -m kvazzup_tpu_torch encode in.y4m out.265 [--qp 32] [--frames N]
         [--size WxH] [--intra-period 64] [--merge 1..5] [--no-deblock]
-        [--sao] [--wpp] [--ctu 16|64] [--device cuda|cpu]
+        [--sao] [--wpp] [--tmvp] [--ctu 16|64] [--device cuda|cpu]
 
 `--sao` turns WPP on as well at CTB16 (the JAX CLI's rule without tiles);
 `--ctu 64` is the CTB64 quadtree (CUs 64 down to 8, TUs up to 32), where
-WPP is not ported.
+WPP is `--wpp` alone.  The JAX package's production configuration is
+`--ctu 64 --wpp --sao --merge 5 --tmvp`.
 
 Flags of the JAX CLI that select other configurations are accepted only at
 their default value; anything else raises NotImplementedError.
@@ -21,7 +22,7 @@ import time
 
 # flag -> default value; any other value selects an unported path
 _UNPORTED = {"tiles": 1, "slices": 1,
-             "tu_intra_depth": 1, "cu8": False, "rdoq": False, "tmvp": False,
+             "tu_intra_depth": 1, "cu8": False, "rdoq": False,
              "bitdepth": 8, "gop": "ld", "bitrate": 0}
 
 
@@ -51,7 +52,7 @@ def cmd_encode(args) -> int:
     if not frames:
         raise SystemExit("no frames read")
     cfg = stream_config(w, h, qp=args.qp, deblock=not args.no_deblock, merge=args.merge,
-                        sao=args.sao, wpp=args.wpp, ctu=args.ctu)
+                        sao=args.sao, wpp=args.wpp, tmvp=args.tmvp, ctu=args.ctu)
     enc = Encoder(cfg, intra_period=args.intra_period, device=args.device)
     t0 = time.time()
     total_psnr = 0.0
@@ -83,6 +84,7 @@ def main(argv=None) -> int:
     pe.add_argument("--no-deblock", action="store_true")
     pe.add_argument("--sao", action="store_true", help="sample adaptive offset (and WPP)")
     pe.add_argument("--wpp", action="store_true", help="wavefront parallel entry points")
+    pe.add_argument("--tmvp", action="store_true", help="temporal motion vector prediction")
     pe.add_argument("--device", default="cuda", help="torch device (default cuda)")
     # JAX-CLI flags whose non-default values select unported paths
     pe.add_argument("--bitrate", type=int, default=0)
@@ -92,7 +94,6 @@ def main(argv=None) -> int:
     pe.add_argument("--tu-intra-depth", type=int, choices=(1, 2), default=1)
     pe.add_argument("--cu8", action="store_true")
     pe.add_argument("--rdoq", action="store_true")
-    pe.add_argument("--tmvp", action="store_true")
     pe.add_argument("--bitdepth", type=int, choices=(8, 10), default=8)
     pe.add_argument("--gop", choices=["ld", "ra"], default="ld")
     pe.set_defaults(fn=cmd_encode)

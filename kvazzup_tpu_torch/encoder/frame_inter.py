@@ -5,8 +5,10 @@ Dense pre-passes over every CTU: motion search, MC at the ME vector and
 its SATD, and the intra mode/cost estimate.  The row-aligned wavefront
 then resolves what depends on coded neighbours -- the merge list (up to
 `merge_cand` candidates), AMVP, the intra/merge/AMVP/skip choice -- and
-codes the chosen prediction.  The sequential state is three waves of
-boundary samples, MVs and inter flags ("rings").
+codes the chosen prediction.  With `tmvp` the collocated CTU's motion in
+the reference picture (its centre: the CTB grid has no colBr inside the
+CTB row) joins both lists as the temporal candidate.  The sequential
+state is three waves of boundary samples, MVs and inter flags ("rings").
 
 CU types per CTU: 0 = intra, 1 = merge, 2 = AMVP, 3 = skip.
 """
@@ -64,9 +66,27 @@ def amvp_list(a_avail, a_mv, b_avail, b_mv):
     return mvp0, mvp1
 
 
-def _merge_candidates(k_max, v_a1, v_b1, v_b0, v_b2, mv_l, mv_a, mv_ar, mv_al):
+def amvp_list_t(a_avail, a_mv, b_avail, b_mv, t_avail, t_mv):
+    """AMVP with the temporal candidate (8.5.3.2.6): spatial A, spatial B
+    (pruned vs A), temporal when fewer than two entries, zero fill."""
+    both = a_avail & b_avail
+    same = both & (a_mv == b_mv).all(dim=-1)
+    nspat = a_avail.to(torch.int32) + (b_avail & ~(a_avail & same)).to(torch.int32)
+    zero = torch.zeros_like(a_mv)
+    mvp0 = torch.where(a_avail[:, None], a_mv,
+                       torch.where(b_avail[:, None], b_mv,
+                                   torch.where(t_avail[:, None], t_mv, zero)))
+    mvp1 = torch.where((nspat == 2)[:, None], b_mv,
+                       torch.where(((nspat == 1) & t_avail)[:, None], t_mv, zero))
+    return mvp0, mvp1
+
+
+def _merge_candidates(k_max, v_a1, v_b1, v_b0, v_b2, mv_l, mv_a, mv_ar, mv_al,
+                      temporal=None):
     """Merge list on the CTB grid (8.5.3.2.3): A1, B1 (pruned vs A1), B0
-    (pruned vs B1), B2 (pruned vs A1/B1), zero fill."""
+    (pruned vs B1), B2 (pruned vs A1/B1), then the temporal candidate
+    when given as (avail (L,), mv (L, 2)) -- appended, never pruned --
+    and zero fill."""
     def eq(a, b):
         return (a[:, 0] == b[:, 0]) & (a[:, 1] == b[:, 1])
 
@@ -77,26 +97,31 @@ def _merge_candidates(k_max, v_a1, v_b1, v_b0, v_b2, mv_l, mv_a, mv_ar, mv_al):
     pos_b1 = p_a1.to(torch.int32)
     pos_b0 = pos_b1 + p_b1.to(torch.int32)
     pos_b2 = pos_b0 + p_b0.to(torch.int32)
+    pos_t = pos_b2 + p_b2.to(torch.int32)
     zero = torch.zeros_like(mv_l)
     cands = []
     for k in range(k_max):
+        tail = zero
+        if temporal is not None:
+            t_av, t_mv = temporal
+            tail = torch.where((t_av & (pos_t == k))[:, None], t_mv, zero)
         mvk = torch.where((p_a1 & (k == 0))[:, None], mv_l,
               torch.where((p_b1 & (pos_b1 == k))[:, None], mv_a,
               torch.where((p_b0 & (pos_b0 == k))[:, None], mv_ar,
-              torch.where((p_b2 & (pos_b2 == k))[:, None], mv_al, zero))))
+              torch.where((p_b2 & (pos_b2 == k))[:, None], mv_al, tail))))
         cands.append(mvk)
     return cands
 
 
 def encode_frame_p_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int,
                         height: int, rdoq: bool = False, merge_cand: int = 1,
-                        tmvp: bool = False):
+                        tmvp: bool = False, col_mv=None, col_inter=None):
     """One P frame against one (deblocked) reference picture; all planes
-    uint8 tensors on one device.  Output format of the reference."""
+    uint8 tensors on one device.  With `tmvp`, col_mv (nctu, 2) and
+    col_inter (nctu,) are the reference picture's motion per CTU (zeros
+    when omitted).  Output format of the reference."""
     if rdoq:
         raise NotImplementedError("RDOQ is not ported")
-    if tmvp:
-        raise NotImplementedError("TMVP is not ported")
     if not 1 <= merge_cand <= 5:
         raise ValueError("merge_cand must be in 1..5")
     dev = y.device
@@ -106,6 +131,9 @@ def encode_frame_p_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int,
     sched = schedule_r(cw, ch)
     lanes = sched["lanes"]
     qp_rows, qpc_rows, lam_rows, oy, ou, ov = frame_setup(y, u, v, qp, nctu)
+    if col_mv is None:
+        col_mv = torch.zeros((nctu, 2), dtype=torch.int32, device=dev)
+        col_inter = torch.zeros((nctu,), dtype=torch.int32, device=dev)
 
     # ---- dense pre-passes
     refp_y8 = edge_pad(ref_y, REF_PAD)
@@ -122,10 +150,11 @@ def encode_frame_p_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int,
     satd_me = ck.satd_flat(pred_me, oy_flat, 4).to(torch.float32)
     imode, icost = cost_prepass_grid(y, oy_flat, lam_rows, log2=4, cw=cw, ch=ch)
 
-    (oy_w, ou_w, ov_w, memv_w, pme_w, csme_w, im_w, ic_w, qp_w, qpc_w,
-     lam_w) = wave_inputs(sched, nctu, [
+    (oy_w, ou_w, ov_w, memv_w, pme_w, csme_w, im_w, ic_w, qp_w, qpc_w, lam_w, colmv_w,
+     colok_w) = wave_inputs(sched, nctu, [
          oy_flat, ou.reshape(nctu, -1), ov.reshape(nctu, -1), me_mv, pred_me,
-         satd_me, imode, icost, qp_rows, qpc_rows, lam_rows])
+         satd_me, imode, icost, qp_rows, qpc_rows, lam_rows,
+         col_mv.to(device=dev, dtype=torch.int32), col_inter.to(device=dev) != 0])
     fl_w, fa_w, ftr_w = wave_flags(sched, cw, dev)
     prepass_inv = torch.as_tensor(_PREPASS_INV, device=dev)
 
@@ -167,8 +196,14 @@ def encode_frame_p_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int,
         v_b0 = ftr & if_ar
         v_b2 = fl & fa & if_al
         b_avail, b_mv = first_inter_mv([(v_b0, mv_ar), (v_b1, mv_a), (v_b2, mv_al)])
-        mvp0, mvp1 = amvp_list(v_a1, mv_l, b_avail, b_mv)
-        cands = _merge_candidates(K, v_a1, v_b1, v_b0, v_b2, mv_l, mv_a, mv_ar, mv_al)
+        if tmvp:
+            temporal = (colok_w[d], colmv_w[d])
+            mvp0, mvp1 = amvp_list_t(v_a1, mv_l, b_avail, b_mv, *temporal)
+        else:
+            temporal = None
+            mvp0, mvp1 = amvp_list(v_a1, mv_l, b_avail, b_mv)
+        cands = _merge_candidates(K, v_a1, v_b1, v_b0, v_b2, mv_l, mv_a, mv_ar, mv_al,
+                                  temporal)
 
         # every merge candidate, merge_idx bits in the cost: one launch
         _, cost_merge, merge_mv, pm_flat = merge.wave(d, cands)

@@ -21,15 +21,16 @@ from ..ops import ctu_kernels as ck
 from ..ops.costs import fma
 from ..ops.mc import mc_luma_window_batch
 from ..runtime import device_const
-from .frame_inter import SEARCH_RANGE, amvp_list, first_inter_mv, mvd_bits
+from .frame_inter import SEARCH_RANGE, amvp_list, amvp_list_t, first_inter_mv, mvd_bits
 from .frame_intra32 import ZO
 
 
-def merge_list_cells(cands, k: int):
+def merge_list_cells(cands, k: int, temporal=None):
     """Spec merge list (8.5.3.2.3) from per-position (avail (L,), mv (L, 2))
     pairs a1, b1, b0, a0, b2: B2 only when fewer than 4 earlier
-    candidates, pruning pairs per spec, zero-MV fill (one reference).
-    Returns k (L, 2) candidate MVs."""
+    candidates, pruning pairs per spec, then the temporal candidate when
+    given as (avail, mv) -- appended after B2, never pruned -- and zero-MV
+    fill (one reference).  Returns k (L, 2) candidate MVs."""
     (va1, ma1), (vb1, mb1) = cands["a1"], cands["b1"]
     (vb0, mb0), (va0, ma0) = cands["b0"], cands["a0"]
     vb2, mb2 = cands["b2"]
@@ -50,23 +51,31 @@ def merge_list_cells(cands, k: int):
     pos_b0 = pos_b1 + i32(p_b1)
     pos_a0 = pos_b0 + i32(p_b0)
     pos_b2 = pos_a0 + i32(p_a0)
+    pos_t = pos_b2 + i32(p_b2)
     zero = torch.zeros_like(ma1)
     out = []
     for j in range(k):
+        tail = zero
+        if temporal is not None:
+            tv, tmv = temporal
+            tail = torch.where((tv & (pos_t == j))[:, None], tmv, zero)
         out.append(torch.where((p_a1 & (j == 0))[:, None], ma1,
                    torch.where((p_b1 & (pos_b1 == j))[:, None], mb1,
                    torch.where((p_b0 & (pos_b0 == j))[:, None], mb0,
                    torch.where((p_a0 & (pos_a0 == j))[:, None], ma0,
-                   torch.where((p_b2 & (pos_b2 == j))[:, None], mb2, zero))))))
+                   torch.where((p_b2 & (pos_b2 == j))[:, None], mb2, tail))))))
     return out
 
 
-def amvp_cells(a_pairs, b_pairs):
+def amvp_cells(a_pairs, b_pairs, temporal=None):
     """AMVP (8.5.3.2.7, one reference): A = first inter of the A
     positions, B = first inter of the B positions, then the two-slot
-    dedupe / zero-fill list."""
+    dedupe / zero-fill list; with `temporal` (avail, mv) the collocated
+    MV fills the slots the spatial ones leave (8.5.3.2.6)."""
     va, ma = first_inter_mv(a_pairs)
     vb, mb = first_inter_mv(b_pairs)
+    if temporal is not None:
+        return amvp_list_t(va, ma, vb, mb, *temporal)
     return amvp_list(va, ma, vb, mb)
 
 

@@ -1,6 +1,6 @@
 """CTB64 quadtree low-delay P encode, CU64 / CU32 / CU16 (counterpart of
-kvazzup_tpu/encoder/frame_inter64.py without TMVP, RDOQ or
-motion-constrained tiles).
+kvazzup_tpu/encoder/frame_inter64.py without RDOQ or motion-constrained
+tiles).
 
 Dense prepasses decide the split tree: motion searches at 64, 32 and 16,
 the MC and SATD of each ME vector, and orig-boundary intra estimates at
@@ -11,13 +11,17 @@ resolver over the wave's cells and three waves of CTB-edge cells), the
 intra / merge / AMVP / skip choice (`frame_inter32.arbitrate`) and the
 reconstruction on per-lane canvases (the `frame_intra64` walk machinery).
 The CU64 leaf is inter only (2Nx2N merge / AMVP / skip, four forced
-TU32s); intra competes at the 32 and 16 leaves.
+TU32s); intra competes at the 32 and 16 leaves.  With TMVP (8.5.3.2.8)
+the temporal candidate of each of a CTB's 21 units is found before the
+wave (`temporal_cells`) from the reference picture's motion store on the
+16x16 grid.
 
 CU types: 0 intra, 1 merge, 2 AMVP, 3 skip.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops import ctu_kernels as ck
@@ -47,6 +51,51 @@ def _quads(a, h: int):
 
 def _mebits(mv):
     return bits_of(mv[:, 0]) + bits_of(mv[:, 1])
+
+
+def temporal_cells(col_mv, col_inter, cw: int, ch: int):
+    """Per-unit temporal candidate (mv, ok) for the 21 units of each CTB,
+    from the raster 16-grid collocated store col_mv (16 cw ch, 2), col_inter
+    (16 cw ch,): colBr when it lies in the picture and in the unit's CTB
+    row (it may be in the CTB to the right) and is inter, else colCtr.
+    Returns t64 ((nctb, 2), (nctb,)), t32 ((nctb, 4, 2), (nctb, 4)) and
+    t16 ((nctb, 4, 4, 2), (nctb, 4, 4)), ok as int32."""
+    h16, w16 = 4 * ch, 4 * cw
+    nctb = cw * ch
+    dev = col_mv.device
+    cmv = col_mv.to(torch.int32).reshape(h16, w16, 2)
+    cif = col_inter.to(torch.int32).reshape(h16, w16)
+    ys0 = 4 * np.arange(ch)[:, None]
+    xs0 = 4 * np.arange(cw)[None, :]
+
+    def cell(cy: int, cx: int):
+        """The collocated cell at (cy, cx) of every CTB's 4x4 cell grid
+        (cx == 4 is the CTB to the right); unavailable outside the
+        picture."""
+        ys, xs = np.broadcast_arrays(ys0 + cy, xs0 + cx)
+        valid = torch.as_tensor(((ys < h16) & (xs < w16)).reshape(-1), device=dev)
+        ysc = torch.as_tensor(np.minimum(ys, h16 - 1).reshape(-1), device=dev)
+        xsc = torch.as_tensor(np.minimum(xs, w16 - 1).reshape(-1), device=dev)
+        ok = torch.where(valid, cif[ysc, xsc], 0)
+        return cmv[ysc, xsc], ok != 0
+
+    def unit_t(x0: int, y0: int, n: int):
+        ctr_mv, ctr_ok = cell((y0 + n // 2) >> 4, (x0 + n // 2) >> 4)
+        if y0 + n >= 64:  # colBr in the next CTB row: unavailable
+            return ctr_mv, ctr_ok
+        br_mv, br_ok = cell((y0 + n) >> 4, (x0 + n) >> 4)
+        return torch.where(br_ok[:, None], br_mv, ctr_mv), br_ok | ctr_ok
+
+    def stack(units):  # [(mv, ok)] -> (mv, ok int32), unit axis 1
+        return (torch.stack([m for m, _ in units], 1),
+                torch.stack([o for _, o in units], 1).to(torch.int32))
+
+    t64m, t64o = unit_t(0, 0, 64)
+    t32 = stack([unit_t(dx3 * 32, dy3 * 32, 32) for dy3, dx3 in ZO])
+    t16 = [stack([unit_t(dx3 * 32 + dx * 16, dy3 * 32 + dy * 16, 16) for dy, dx in ZO])
+           for dy3, dx3 in ZO]
+    return (t64m, t64o.to(torch.int32), *t32,
+            torch.stack([m for m, _ in t16], 1), torch.stack([o for _, o in t16], 1))
 
 
 class _Wave:
@@ -80,7 +129,7 @@ class _Wave:
             return mif[:, y >> 4, x >> 4] != 0, mcv[:, y >> 4, x >> 4]
         return self.no, self.zmv
 
-    def unit_lists(self, mcv, mif, x0: int, y0: int, n: int):
+    def unit_lists(self, mcv, mif, x0: int, y0: int, n: int, temporal=None):
         zcur = zscan(x0, y0)
 
         def mc(x, y):
@@ -88,8 +137,9 @@ class _Wave:
 
         a1, b1, b0 = mc(x0 - 1, y0 + n - 1), mc(x0 + n - 1, y0 - 1), mc(x0 + n, y0 - 1)
         a0, b2 = mc(x0 - 1, y0 + n), mc(x0 - 1, y0 - 1)
-        merge = merge_list_cells({"a1": a1, "b1": b1, "b0": b0, "a0": a0, "b2": b2}, self.k)
-        return (merge, *amvp_cells([a0, a1], [b0, b1, b2]))
+        merge = merge_list_cells({"a1": a1, "b1": b1, "b0": b0, "a0": a0, "b2": b2}, self.k,
+                                 temporal)
+        return (merge, *amvp_cells([a0, a1], [b0, b1, b2], temporal))
 
     def intra_pred(self, canvas, p: int, x0: int, y0: int, log2: int, sel):
         n = 1 << log2
@@ -97,15 +147,17 @@ class _Wave:
         preds = ck.predict_modes_subset_flat(a, log2, p == 0, P_PREPASS_MODES)
         return preds.gather(1, sel[:, None, None].expand(-1, 1, n * n))[:, 0]
 
-    def code_unit(self, canvases, mcv, mif, x0: int, y0: int, log2: int, imode, icost, memv):
+    def code_unit(self, canvases, mcv, mif, x0: int, y0: int, log2: int, imode, icost, memv,
+                  temporal=None):
         """One inter-capable unit: arbitration, prediction, residual coding,
-        canvas and motion-cell updates in place.  Returns its decisions and
+        canvas and motion-cell updates in place.  `temporal`: the unit's
+        (avail, mv) temporal candidate, or None.  Returns its decisions and
         levels."""
         lanes, n = self.lanes, 1 << log2
         oyf = self.origs[0][:, y0:y0 + n, x0:x0 + n].reshape(lanes, n * n)
         span = n + 2 * SEARCH_RANGE + 7
         win = self.win64[:, y0:y0 + span, x0:x0 + span]
-        merge, mvp0, mvp1 = self.unit_lists(mcv, mif, x0, y0, n)
+        merge, mvp0, mvp1 = self.unit_lists(mcv, mif, x0, y0, n, temporal)
         arb = arbitrate(oyf, log2, win, merge, memv, mvp0, mvp1, icost, self.lamf, self.k)
         ui = arb["use_intra"]
         isel = device_const("prepass_inv", lambda: _PREPASS_INV, self.dev,
@@ -141,12 +193,12 @@ class _Wave:
 
 
 def encode_frame_p64_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int, height: int,
-                          merge_cand: int = 1, tmvp: bool = False, rdoq: bool = False,
-                          xtile=(False, False)):
+                          merge_cand: int = 1, tmvp: bool = False, col_mv=None, col_inter=None,
+                          rdoq: bool = False, xtile=(False, False)):
     """CTB64 P frame against one (loop-filtered) reference picture; all
-    planes uint8 tensors on one device.  Output format of the reference."""
-    if tmvp:
-        raise NotImplementedError("TMVP is not ported")
+    planes uint8 tensors on one device.  With `tmvp`, col_mv (16 nctb, 2)
+    and col_inter (16 nctb,) are the reference picture's motion on the
+    raster 16-grid (`temporal_cells`).  Output format of the reference."""
     if rdoq:
         raise NotImplementedError("RDOQ is not ported")
     if any(xtile):
@@ -204,12 +256,18 @@ def encode_frame_p64_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int, 
 
     m32z, ic32z, me32z = z32(imode32), z32(icost32), z32(me[32])
     m16z, ic16z, me16z = z16(imode16), z16(icost16), z16(me[16])
+    t_cells = []
+    if tmvp:
+        if col_mv is None:
+            col_mv = torch.zeros((16 * nctb, 2), dtype=torch.int32, device=dev)
+            col_inter = torch.zeros((16 * nctb,), dtype=torch.int32, device=dev)
+        t_cells = temporal_cells(col_mv.to(dev), col_inter.to(dev), cw, ch)
 
     # ---- wave
     (oy_w, ou_w, ov_w, me64_w, me32_w, me16_w, im32_w, ic32_w, im16_w, ic16_w, s64_w, s32_w,
-     qp_w, qpc_w, lam_w) = wave_inputs(
+     qp_w, qpc_w, lam_w, *t_w) = wave_inputs(
         sched, nctb, [oy64, ou32, ov32, me[64], me32z, me16z, m32z, ic32z, m16z, ic16z,
-                      split64, split32, qp_rows, qpc_rows, lam_rows])
+                      split64, split32, qp_rows, qpc_rows, lam_rows, *t_cells])
     fl_w, fa_w, ftr_w = wave_flags(sched, cw, dev)
     nw = sched["n_waves"]
     m = S // 2
@@ -238,6 +296,13 @@ def encode_frame_p64_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int, 
     for d in range(nw):
         fl, fa, ftr = fl_w[d], fa_w[d], ftr_w[d]
         (mvb, mvr), (ifb, ifr) = mv_rings, if_rings
+        if tmvp:  # per unit: (avail, mv) of its temporal candidate
+            t64m, t64o, t32m, t32o, t16m, t16o = (t[d] for t in t_w)
+            t64 = (t64o != 0, t64m)
+            t32 = [(t32o[:, q] != 0, t32m[:, q]) for q in range(4)]
+            t16 = [[(t16o[:, q, z] != 0, t16m[:, q, z]) for z in range(4)] for q in range(4)]
+        else:
+            t64, t32, t16 = None, [None] * 4, [[None] * 4] * 4
         cells = {"L_mv": mvr[0], "L_if": ifr[0], "T_mv": shift(mvb[1]), "T_if": shift(ifb[1]),
                  "TR_mv": shift(mvb[0]), "TR_if": shift(ifb[0]),
                  "AL_mv": shift(mvb[2])[:, 3], "AL_if": shift(ifb[2])[:, 3]}
@@ -261,10 +326,10 @@ def encode_frame_p64_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int, 
             # then the CU16s on the state itself, and keep one per lane
             leaf = ([c.clone() for c in cvs], mcv.clone(), mif.clone())
             dec32 = wv.code_unit(*leaf, x3, y3, 5, im32_w[d][:, q32], ic32_w[d][:, q32],
-                                 me32_w[d][:, q32])
+                                 me32_w[d][:, q32], t32[q32])
             dec16 = [wv.code_unit(cvs, mcv, mif, x3 + dx * 16, y3 + dy * 16, 4,
                                   im16_w[d][:, q32, q16], ic16_w[d][:, q32, q16],
-                                  me16_w[d][:, q32, q16])
+                                  me16_w[d][:, q32, q16], t16[q32][q16])
                      for q16, (dy, dx) in enumerate(ZO)]
             for p, (cv, lcv) in enumerate(zip(cvs, leaf[0])):
                 sh = 0 if p == 0 else 1
@@ -281,7 +346,7 @@ def encode_frame_p64_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int, 
 
         # CU64 leaf: inter only, one MC, four forced TU32s (chroma TU16s)
         merge64, mvp0, mvp1 = wv.unit_lists(torch.zeros_like(mcv), torch.zeros_like(mif),
-                                            0, 0, 64)
+                                            0, 0, 64, t64)
         big = torch.full((lanes,), BIG, dtype=torch.float32, device=dev)
         arb64 = arbitrate(oy_w[d].reshape(lanes, -1), 6, wins[0], merge64, me64_w[d], mvp0,
                           mvp1, big, lam_w[d], k)

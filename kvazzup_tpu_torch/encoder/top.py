@@ -6,11 +6,12 @@ Per frame: device encode (CTB16: IDR `encode_frame_intra_fast`, P
 `encode_frame_p64_fast`, whose decision trees cross to the host) ->
 deblocking (CTB64: bS maps from the trees on the 8-sample grid) -> SAO
 decision and application (`--sao`; both read the original frame) -> the
-reference picture advances -> host CABAC (CTB16: `entropy.slice_data`,
-the native C writer or its Python tier where SAO parameters precede each
-CTU's syntax; CTB64: the native quadtree writer, `entropy.quad`) -> NAL
-mux, with WPP entry points when `cfg.wpp`.  Configurations outside those
-two branches raise NotImplementedError.
+reference picture advances, and with TMVP its motion store (CTB16: per
+CTU; CTB64: on the 16x16 grid, from the trees) -> host CABAC (CTB16:
+`entropy.slice_data`, the native C writer or its Python tier where SAO
+parameters precede each CTU's syntax; CTB64: the native quadtree writer,
+`entropy.quad`) -> NAL mux, with WPP entry points when `cfg.wpp`.
+Configurations outside those two branches raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,14 +23,15 @@ from .. import runtime
 from ..core.nal import NalType, NalUnit, compose_nal, ebsp_entry_offsets
 from ..core.params import (SliceHeader, StreamConfig, compose_pps, compose_slice_header,
                            compose_sps, compose_vps)
-from ..entropy.quad import encode_slice_data_intra_quad, encode_slice_data_p_quad
+from ..entropy.quad import (encode_slice_data_intra_quad, encode_slice_data_intra_quad_wpp,
+                           encode_slice_data_p_quad, encode_slice_data_p_quad_wpp)
 from ..entropy.slice_data import (SaoState, encode_slice_data_intra,
                                   encode_slice_data_intra_wpp, encode_slice_data_p,
                                   encode_slice_data_p_wpp)
 from ..ops.deblock import compute_bs, deblock_frame
 from ..ops.sao import sao_apply_planes, sao_decide, sao_decide_chroma, sao_lambda
 from .cu32 import quad_bs_maps
-from .frame_inter import encode_frame_p_fast
+from .frame_inter import CT_INTRA, encode_frame_p_fast
 from .frame_inter32 import quad_p_bs_maps, quad_p_cell_maps
 from .frame_inter64 import encode_frame_p64_fast, quad_p64_trees_from_device
 from .frame_intra import encode_frame_intra_fast
@@ -61,7 +63,6 @@ def _check_supported(cfg: StreamConfig) -> None:
         "slices": cfg.slices != 1,
         "cu_qp_delta": cfg.cu_qp_delta,
         "rdoq": cfg.rdoq,
-        "temporal_mvp": cfg.temporal_mvp,
         "fast_decision off": not cfg.fast_decision,
         "max_transform_hierarchy_depth_intra": cfg.max_transform_hierarchy_depth_intra != 0,
     }
@@ -69,8 +70,7 @@ def _check_supported(cfg: StreamConfig) -> None:
         branch = "CTB64"
         unsupported = {**common,
                        "min_cb_log2 != 3": cfg.min_cb_log2 != 3,
-                       "max_tb_log2 != 5": cfg.max_tb_log2 != 5,
-                       "wpp at CTB64": cfg.wpp}
+                       "max_tb_log2 != 5": cfg.max_tb_log2 != 5}
     else:
         branch = "CTB16"
         unsupported = {**common,
@@ -104,19 +104,22 @@ class Encoder:
         self._frame_count = 0
         self._poc = 0
         self._ref = None  # (y, u, v) uint8 tensors after the loop filter
+        # the reference picture's motion for TMVP, (mv (n, 2), inter (n,))
+        # int32: per CTU at CTB16 (zeros after an IDR), on the 16x16 grid at
+        # CTB64 (None after an IDR)
+        self._col = None
 
-    # ---- checkpoint / resume: the DPB plus the chain counters
+    # ---- checkpoint / resume: the DPB, the motion store, the chain counters
     def snapshot(self) -> dict:
         ref = None if self._ref is None else tuple(p.cpu().numpy() for p in self._ref)
+        col = None if self._col is None else tuple(p.cpu().numpy() for p in self._col)
         return {"frame_count": self._frame_count, "poc": self._poc,
-                "idr_count": self._idr_count, "ref": ref, "col": None}
+                "idr_count": self._idr_count, "ref": ref, "col": col}
 
     def restore(self, snap: dict, device=None) -> None:
         """Resume from a snapshot (this encoder's or the JAX Encoder's)."""
         if device is not None:
             self.device = torch.device(device)
-        if snap.get("col") is not None and self.cfg.temporal_mvp:
-            raise NotImplementedError("TMVP state is not ported")
         self._frame_count = snap["frame_count"]
         self._poc = snap["poc"]
         self._idr_count = snap.get("idr_count", 0)
@@ -124,6 +127,9 @@ class Encoder:
         self._ref = None if ref is None else tuple(
             torch.as_tensor(np.array(p, dtype=np.uint8), device=self.device)
             for p in ref)
+        col = snap.get("col")
+        self._col = None if col is None else tuple(
+            torch.as_tensor(np.array(p, dtype=np.int32), device=self.device) for p in col)
 
     def headers(self) -> bytes:
         cfg = self.cfg
@@ -164,18 +170,30 @@ class Encoder:
         return {"kind": kind, "out": out, "qp": qp,
                 "first": first, "poc": self._poc, "sao": sao, "recon": (ry, ru, rv)}
 
+    def _zero_col(self, n: int):
+        return (torch.zeros((n, 2), dtype=torch.int32, device=self.device),
+                torch.zeros((n,), dtype=torch.int32, device=self.device))
+
     def _ctb16(self, y, u, v, qp: int, is_idr: bool):
         """CTB16 device encode + deblocking: (outputs, planes)."""
         cfg = self.cfg
+        nctu = cfg.ctbs_w * cfg.ctbs_h
         if is_idr:
             out = encode_frame_intra_fast(y, u, v, qp, width=cfg.width, height=cfg.height)
             bs_v = bs_h = None
         else:
             ry, ru, rv = self._ref
+            tmvp_kw = {}
+            if cfg.temporal_mvp:
+                col = self._zero_col(nctu) if self._col is None else self._col
+                tmvp_kw = dict(tmvp=True, col_mv=col[0], col_inter=col[1])
             out = encode_frame_p_fast(y, u, v, ry, ru, rv, qp, width=cfg.width,
-                                      height=cfg.height, merge_cand=cfg.merge_cand)
+                                      height=cfg.height, merge_cand=cfg.merge_cand, **tmvp_kw)
             bs_v, bs_h = compute_bs(out["ctype"], (out["lev_y"] != 0).any(dim=2).any(dim=1),
                                     out["mv"], cfg.ctbs_w, cfg.ctbs_h)
+        if cfg.temporal_mvp:  # this picture's motion, for the next P's TMVP
+            self._col = self._zero_col(nctu) if is_idr else (
+                out["mv"], (out["ctype"] != CT_INTRA).to(torch.int32))
         planes = out["recon_y"], out["recon_u"], out["recon_v"]
         if cfg.deblocking_enabled:
             planes = deblock_frame(*planes, qp, spacing=cfg.ctb_size, bs_v=bs_v, bs_h=bs_h)
@@ -189,16 +207,32 @@ class Encoder:
         if is_idr:
             dev = encode_frame_intra64_fast(y, u, v, qp, width=w, height=h)
             trees = quad_trees_from_device64(dev, w, h)
+            self._col = None  # an IDR reference: all-intra collocated motion
 
             def bs_maps():  # bS 2 on every CU / TU edge
                 return (*quad_bs_maps(trees, w, h, cfg.ctb_log2), 0)
         else:
+            tmvp_kw = {}
+            if cfg.temporal_mvp:
+                n16 = (w // 16) * (h // 16)
+                col = self._col
+                if col is None or col[0].shape[0] != n16:
+                    col = self._zero_col(n16)
+                tmvp_kw = dict(tmvp=True, col_mv=col[0], col_inter=col[1])
             dev = encode_frame_p64_fast(y, u, v, *self._ref, qp, width=w, height=h,
-                                        merge_cand=cfg.merge_cand)
+                                        merge_cand=cfg.merge_cand, **tmvp_kw)
             trees = quad_p64_trees_from_device(dev, w, h)
+            cells = (quad_p_cell_maps(trees, w, h, ctb=64)
+                     if cfg.temporal_mvp or cfg.deblocking_enabled else None)
+            if cfg.temporal_mvp:  # the 16x16-compressed store: each cell's top-left 4x4
+                mv4, inter4, _ = cells
+                self._col = (
+                    torch.as_tensor(np.ascontiguousarray(mv4[::4, ::4].reshape(-1, 2)),
+                                    device=self.device),
+                    torch.as_tensor(np.ascontiguousarray(inter4[::4, ::4].reshape(-1)),
+                                    device=self.device))
 
             def bs_maps():  # per 4-sample segment, from the 4x4-cell maps
-                cells = quad_p_cell_maps(trees, w, h, ctb=64)
                 return (*quad_p_bs_maps(trees, *cells, w, h, ctb=64), 4)
         planes = dev["recon_y"], dev["recon_u"], dev["recon_v"]
         if cfg.deblocking_enabled:
@@ -241,13 +275,21 @@ class Encoder:
             sao_state = SaoState(cfg.ctbs_w, cfg.ctbs_h, typ=typ, aux=aux, offs=offs)
         entry_offsets = None
         if ctx["kind"] == "quad":
-            payload = encode_slice_data_intra_quad(cfg, out["trees"], slice_qp=qp,
-                                                   sao=sao_state)
+            if cfg.wpp:
+                payload, entry_offsets = encode_slice_data_intra_quad_wpp(
+                    cfg, out["trees"], slice_qp=qp, sao=sao_state)
+            else:
+                payload = encode_slice_data_intra_quad(cfg, out["trees"], slice_qp=qp,
+                                                       sao=sao_state)
             sh = SliceHeader(slice_type=2, qp=qp, nal_type=NalType.IDR_W_RADL,
                              sao_luma=cfg.sao_enabled, sao_chroma=cfg.sao_enabled)
         elif ctx["kind"] == "quad_p":
-            payload = encode_slice_data_p_quad(cfg, out["trees"], slice_qp=qp, sao=sao_state,
-                                               merge_k=cfg.merge_cand)
+            if cfg.wpp:
+                payload, entry_offsets = encode_slice_data_p_quad_wpp(
+                    cfg, out["trees"], slice_qp=qp, sao=sao_state, merge_k=cfg.merge_cand)
+            else:
+                payload = encode_slice_data_p_quad(cfg, out["trees"], slice_qp=qp,
+                                                   sao=sao_state, merge_k=cfg.merge_cand)
             sh = self._p_header(qp, ctx["poc"])
         elif ctx["kind"] == "idr":
             arrays = (host("mode"), host("lev_y"), host("lev_cb"), host("lev_cr"))

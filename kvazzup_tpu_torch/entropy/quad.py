@@ -1,12 +1,14 @@
 """CU-quadtree slice data through the native CABAC writer (counterpart of
-the native frontend of kvazzup_tpu/entropy/quad.py: I and P slices, no
-WPP, tiles or cu_qp_delta).
+the native frontend of kvazzup_tpu/entropy/quad.py: I and P slices, with
+or without WPP; no tiles or cu_qp_delta).
 
 The decision trees (the reference's cu32 format, from
 `encoder/frame_intra64` and `encoder/frame_inter64`) are flattened into a
 token stream and a level stream (`_serialize_trees`) for
 `native.encode_slice_quad_native`, which writes 7.3.8 syntax with SAO
-parameters before each CTU when given.  The reference's Python writer is
+parameters before each CTU when given, and with WPP one substream per CTB
+row (entropy_coding_sync: each row's contexts inherited from the row
+above) and their lengths.  The reference's Python writer is
 not ported: a writer that cannot run raises instead of falling back.
 """
 
@@ -71,24 +73,37 @@ def _serialize_trees(cfg, trees, slice_type: int):
     return np.asarray(toks, np.int32), levels
 
 
-def _native_quad(cfg, trees, slice_type: int, slice_qp, sao, merge_k: int) -> bytes:
+def _native_quad(cfg, trees, slice_type: int, wpp: bool, slice_qp, sao, merge_k: int):
+    """(payload, substream lengths or None) from the native writer."""
     sq = cfg.qp if slice_qp is None else slice_qp
     tokens, levels = _serialize_trees(cfg, trees, slice_type)
-    out = encode_slice_quad_native(cfg, slice_type, False, tokens, levels, sq, sao=sao,
+    out = encode_slice_quad_native(cfg, slice_type, wpp, tokens, levels, sq, sao=sao,
                                    merge_k=merge_k)
     if out is None:
         raise RuntimeError("the native quadtree CABAC writer refused the slice "
                            f"(slice type {slice_type}, {len(trees)} CTBs)")
-    return out[0]
+    return out
 
 
 def encode_slice_data_intra_quad(cfg, trees, slice_qp=None, sao=None) -> bytes:
     """I-slice data of the quadtree trees (one slice, CTBs in raster
     order); `sao` (a SaoState) puts its per-CTB parameters before each
     CTU's syntax (7.3.8.2)."""
-    return _native_quad(cfg, trees, 2, slice_qp, sao, 1)
+    return _native_quad(cfg, trees, 2, False, slice_qp, sao, 1)[0]
 
 
 def encode_slice_data_p_quad(cfg, trees, slice_qp=None, sao=None, merge_k: int = 1) -> bytes:
     """P-slice data of the quadtree trees (one slice, init_type 1)."""
-    return _native_quad(cfg, trees, 1, slice_qp, sao, merge_k)
+    return _native_quad(cfg, trees, 1, False, slice_qp, sao, merge_k)[0]
+
+
+def encode_slice_data_intra_quad_wpp(cfg, trees, slice_qp=None, sao=None):
+    """WPP I-slice data: one substream per CTB row.  Returns (payload,
+    entry_point_offsets), the substreams' byte lengths before emulation
+    prevention (`core.nal.ebsp_entry_offsets` converts them)."""
+    return _native_quad(cfg, trees, 2, True, slice_qp, sao, 1)
+
+
+def encode_slice_data_p_quad_wpp(cfg, trees, slice_qp=None, sao=None, merge_k: int = 1):
+    """WPP P-slice data: as `encode_slice_data_intra_quad_wpp`."""
+    return _native_quad(cfg, trees, 1, True, slice_qp, sao, merge_k)

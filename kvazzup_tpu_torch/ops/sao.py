@@ -10,9 +10,11 @@ adds each sample's offset from its CTB's parameters.
 `sao_apply_plain` per plane, CUDA tensors launch `kvz_sao_apply`
 (`csrc/sao_kernels.cu`, the counterpart of the Pallas `_sao_strip_kernel`)
 once for up to three planes, or raise; `sao_apply` is its one-plane form.
-`LAUNCHES` counts kernel launches; the plain version never touches it.  The
-sharded-strip arguments of the reference (`xpad`, `lvalid`, `rvalid`) and
-bit depths other than 8 are not ported and raise.
+`LAUNCHES` counts kernel launches; the plain version never touches it.
+Planes are uint8 at bit depth 8 and uint16 at bit depths 9 to 16 (the
+reference's bd 10 mode), and need not be CTB multiples.  The sharded-strip
+arguments of the reference (`xpad`, `lvalid`, `rvalid`) are not ported and
+raise.
 
 Parameter encoding per CTB and component:
   type: 0 = off, 1 = band (BO), 2 = edge (EO)
@@ -224,10 +226,17 @@ def sao_decide_chroma(orig_cb, rec_cb, orig_cr, rec_cr, lam: float, *, ctb: int)
 # --------------------------------------------------------------- application
 
 
+def _sample_dtype(bd: int):
+    if not 8 <= bd <= 16:
+        raise ValueError(f"SAO apply takes bit depths 8 to 16, got {bd}")
+    return torch.uint8 if bd == 8 else torch.uint16
+
+
 def sao_apply_plain(rec, typ, aux, offs, *, ctb: int, bd: int = 8):
     """SAO applied to one plane in plain PyTorch (the reference's XLA form,
-    unsharded).  rec (H, W) uint8; typ, aux (cbh, cbw); offs (cbh, cbw, 4).
-    Neighbours are read from `rec` itself, never from the output."""
+    unsharded).  rec (H, W) of bit depth bd; typ, aux (cbh, cbw); offs
+    (cbh, cbw, 4).  Neighbours are read from `rec` itself, never from the
+    output.  Returns uint8 at bd 8, uint16 otherwise."""
     r = rec.to(torch.int32)
     h, w = r.shape
     emaps = _edge_index_maps(r)
@@ -249,14 +258,14 @@ def sao_apply_plain(rec, typ, aux, offs, *, ctb: int, bd: int = 8):
         bo_val = torch.where(brel == j, offs_up[j], bo_val)
     delta = torch.where(typ_px == SAO_EDGE, cat_off,
                         torch.where(typ_px == SAO_BAND, bo_val, 0))
-    return (r + delta).clamp(0, (1 << bd) - 1).to(torch.uint8)
+    return (r + delta).clamp(0, (1 << bd) - 1).to(_sample_dtype(bd))
 
 
-def _check_plane(rec, typ, aux, offs, ctb: int, name: str):
+def _check_plane(rec, typ, aux, offs, ctb: int, name: str, bd: int):
     """Raise unless the plane's operands are what the kernel takes (the
     message names the plane; nothing is formatted when they are)."""
     try:
-        runtime.check_operand(rec, "rec", 2, dtype=torch.uint8)
+        runtime.check_operand(rec, "rec", 2, dtype=_sample_dtype(bd))
         if ctb < CTB_STEP or ctb % CTB_STEP:
             raise ValueError(f"SAO apply needs a ctb that is a multiple of {CTB_STEP}, got {ctb}")
         h, w = rec.shape
@@ -268,22 +277,23 @@ def _check_plane(rec, typ, aux, offs, ctb: int, name: str):
         raise type(e)(f"{name}: {e}") from None
 
 
-def sao_apply_planes(planes):
-    """Apply SAO to up to three 8-bit planes in one launch.
+def sao_apply_planes(planes, bd: int = 8):
+    """Apply SAO to up to three planes of bit depth bd in one launch.
 
     planes: a sequence of (rec, typ, aux, offs, ctb), each as for
     `sao_apply` (the encoder passes luma at the CTB size and Cb, Cr at half
-    of it).  Returns the new (H, W) uint8 planes, in order."""
+    of it).  Returns the new (H, W) planes, in order: uint8 at bd 8,
+    uint16 otherwise."""
     if not 1 <= len(planes) <= 3:
         raise ValueError(f"SAO apply takes 1 to 3 planes, got {len(planes)}")
     names = ("luma", "cb", "cr") if len(planes) == 3 else ("plane",) * len(planes)
     for (rec, typ, aux, offs, ctb), name in zip(planes, names):
-        _check_plane(rec, typ, aux, offs, ctb, name)
+        _check_plane(rec, typ, aux, offs, ctb, name, bd)
     if not runtime.kernel_route(*(t for p in planes for t in p[:4])):
-        return [sao_apply_plain(rec, typ, aux, offs, ctb=ctb)
+        return [sao_apply_plain(rec, typ, aux, offs, ctb=ctb, bd=bd)
                 for rec, typ, aux, offs, ctb in planes]
     rec0 = planes[0][0]
-    buf = torch.empty(sum(p[0].numel() for p in planes), dtype=torch.uint8,
+    buf = torch.empty(sum(p[0].numel() for p in planes), dtype=rec0.dtype,
                       device=rec0.device).split([p[0].numel() for p in planes])
     outs = [b.view(p[0].shape) for b, p in zip(buf, planes)]
     args = []
@@ -293,7 +303,7 @@ def sao_apply_planes(planes):
                  out.data_ptr(), h, w, ctb, typ.shape[1]]
     args += [None, None, None, None, None, 0, 0, 0, 0] * (3 - len(planes))
     with runtime.on_device(rec0):
-        err = runtime.kernel_lib().kvz_sao_apply(*args, len(planes),
+        err = runtime.kernel_lib().kvz_sao_apply(*args, len(planes), bd,
                                                  runtime.stream_ptr(rec0))
     runtime.check_launch(err, "sao")
     LAUNCHES["sao"] += 1
@@ -302,12 +312,11 @@ def sao_apply_planes(planes):
 
 def sao_apply(rec, typ, aux, offs, *, ctb: int, bd: int = 8, xpad: int = 0,
               lvalid=False, rvalid=False):
-    """Apply SAO to one plane: rec (H, W) uint8; typ, aux (cbh, cbw) int32;
-    offs (cbh, cbw, 4) int32, cbh = ceil(H / ctb), cbw = ceil(W / ctb),
-    ctb a multiple of 4.  Returns a new (H, W) uint8 tensor: a one-plane launch of the
-    kernel of `sao_apply_planes`."""
+    """Apply SAO to one plane: rec (H, W), uint8 at bit depth bd 8 and
+    uint16 at 9..16; typ, aux (cbh, cbw) int32; offs (cbh, cbw, 4) int32,
+    cbh = ceil(H / ctb), cbw = ceil(W / ctb), ctb a multiple of 4.  Returns
+    a new (H, W) tensor of rec's type: a one-plane launch of the kernel of
+    `sao_apply_planes`."""
     if xpad or lvalid or rvalid:
         raise NotImplementedError("sharded-strip SAO (xpad, lvalid, rvalid) is not ported")
-    if bd != 8:
-        raise NotImplementedError(f"SAO at bit depth {bd} is not ported (8 only)")
-    return sao_apply_planes([(rec, typ, aux, offs, ctb)])[0]
+    return sao_apply_planes([(rec, typ, aux, offs, ctb)], bd)[0]

@@ -135,7 +135,7 @@ def _bind(lib):
     lib.kvz_quant.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.kvz_dequant.argtypes = [p, p, p, i, i, i, i, p]
     lib.kvz_satd.argtypes = [p, p, p, i, i, i, p]
-    lib.kvz_sao_apply.argtypes = [p, p, p, p, p, i, i, i, i] * 3 + [i, p]
+    lib.kvz_sao_apply.argtypes = [p, p, p, p, p, i, i, i, i] * 3 + [i, i, p]
     lib.kvz_code_residual.argtypes = [p, p, p, p, p, i, i] * 3 + [p, i, i, p]
     lib.kvz_merge_search.argtypes = [p, ll, ll, p, p, p, i, i, i, p, p, p, p, p]
     for fn in (lib.kvz_quant, lib.kvz_dequant, lib.kvz_satd, lib.kvz_sao_apply,

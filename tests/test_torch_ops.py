@@ -363,7 +363,7 @@ def test_deblock_frame(qp, with_bs):
         eq(a, b)
 
 
-@pytest.mark.parametrize("case", ["me_tiles", "p_tmvp", "p_rdoq", "idr_rdoq"])
+@pytest.mark.parametrize("case", ["me_tiles", "deblock_main10", "p_rdoq", "idr_rdoq"])
 def test_unported_options_raise(case):
     from kvazzup_tpu_torch.encoder.frame_inter import encode_frame_p_fast
     from kvazzup_tpu_torch.encoder.frame_intra import encode_frame_intra_fast
@@ -372,7 +372,7 @@ def test_unported_options_raise(case):
     c = torch.zeros((16, 16), dtype=torch.uint8)
     calls = {
         "me_tiles": lambda: tme.motion_search(y, y, 0, width=32, height=32, xtile=(True, False)),
-        "p_tmvp": lambda: encode_frame_p_fast(y, c, c, y, c, c, 30, width=32, height=32, tmvp=True),
+        "deblock_main10": lambda: tdb.deblock_frame(y, c, c, 30, bd=10),
         "p_rdoq": lambda: encode_frame_p_fast(y, c, c, y, c, c, 30, width=32, height=32, rdoq=True),
         "idr_rdoq": lambda: encode_frame_intra_fast(y, c, c, 30, width=32, height=32, rdoq=True),
     }

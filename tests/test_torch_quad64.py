@@ -4,7 +4,9 @@ Encoder.
 192x128 (3x2 CTBs), the moving sequence of tests/test_inter64_device.py
 (`synthetic_frames(192, 128, 1, seed=5)` rolled by (3i, 5i)), IDR + 3 P at
 QP 30, CTB64 quadtree with deblocking, at two points: merge 1 without SAO
-and merge 5 with SAO.  The port's Annex-B stream must be byte-identical to
+and merge 5 with SAO, and the first with WPP (`--ctu 64 --wpp`, whose
+device stage is the first point's: its JAX encode reuses that compile).
+The port's Annex-B stream must be byte-identical to
 the JAX `Encoder`'s frame by frame and its reconstruction element-identical;
 the JAX `Decoder` must decode it to the port's reconstruction; a JAX
 snapshot taken after the IDR frame must resume in the port.  Each JAX
@@ -71,6 +73,34 @@ def test_stream_byte_identical(runs, point):
             np.testing.assert_array_equal(np.asarray(pa), pb, err_msg=f"recon frame {i}")
 
 
+@pytest.fixture(scope="module")
+def wpp_runs(frames, runs):
+    """(jax streams, jax recons, port streams, port recons) of `--ctu 64
+    --wpp` at merge 1 (after `runs`, whose merge-1 compile it reuses)."""
+    jenc = JaxEncoder(_cfg(wpp=True), intra_period=64)
+    jout = [jenc.encode_frame(*f) for f in frames]
+    enc = Encoder(_cfg(wpp=True), intra_period=64, device="cpu")
+    out = [enc.encode_frame(*f) for f in frames]
+    return ([s for s, _ in jout], [r for _, r in jout], [s for s, _ in out],
+            [r for _, r in out])
+
+
+def test_wpp_stream_byte_identical(wpp_runs, runs):
+    """WPP at CTB64: one substream per CTB row, entry points in the slice
+    header; the port's stream equals the JAX Encoder's and its recon that
+    of the stream without WPP."""
+    js, jr, ts, tr = wpp_runs
+    assert ts == js
+    for a, b in zip(jr, tr):
+        for pa, pb in zip(a, b):
+            np.testing.assert_array_equal(np.asarray(pa), pb)
+    plain_streams, _, _, plain_recons, _ = runs[1, False]
+    assert all(a != b for a, b in zip(ts, plain_streams))
+    for a, b in zip(tr, plain_recons):
+        for pa, pb in zip(a, b):
+            np.testing.assert_array_equal(pa, np.asarray(pb))
+
+
 @pytest.mark.parametrize("point", POINTS)
 def test_jax_decoder_reproduces_port_recon(runs, point):
     _, _, ts, tr, _ = runs[point]
@@ -102,8 +132,8 @@ def test_cli_ctu64_matches_encoder(frames, tmp_path, runs):
     assert out.read_bytes() == b"".join(runs[1, False][0][:2])
 
 
-@pytest.mark.parametrize("argv", [["--ctu", "32"], ["--ctu", "64", "--wpp"],
-                                  ["--ctu", "64", "--tmvp"], ["--ctu", "64", "--rdoq"],
+@pytest.mark.parametrize("argv", [["--ctu", "32"], ["--ctu", "64", "--slices", "2"],
+                                  ["--ctu", "64", "--bitdepth", "10"], ["--ctu", "64", "--rdoq"],
                                   ["--ctu", "64", "--tiles", "2"]])
 def test_cli_unported_ctb64_options_raise(frames, tmp_path, argv):
     from kvazzup_tpu_torch.cli import main
@@ -115,7 +145,7 @@ def test_cli_unported_ctb64_options_raise(frames, tmp_path, argv):
               "--device", "cpu"])
 
 
-@pytest.mark.parametrize("kw", [dict(temporal_mvp=True), dict(rdoq=True), dict(wpp=True),
+@pytest.mark.parametrize("kw", [dict(fast_decision=False), dict(rdoq=True), dict(min_cb_log2=4),
                                 dict(cu_qp_delta=True), dict(slices=2), dict(tile_cols=2),
                                 dict(bit_depth=10), dict(max_transform_hierarchy_depth_intra=1),
                                 dict(ctb_log2=5)])

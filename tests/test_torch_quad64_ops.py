@@ -351,7 +351,7 @@ def test_p64_trees_and_bs_maps_match_reference(p64):
 def test_unported_p64_options_raise():
     z = torch.zeros((128, 256), dtype=torch.uint8)
     zc = torch.zeros((64, 128), dtype=torch.uint8)
-    for kw in (dict(tmvp=True), dict(rdoq=True), dict(xtile=(True, False))):
+    for kw in (dict(rdoq=True), dict(xtile=(True, False))):
         with pytest.raises(NotImplementedError):
             encode_frame_p64_fast(z, zc, zc, z, zc, zc, 30, width=256, height=128, **kw)
     with pytest.raises(NotImplementedError):

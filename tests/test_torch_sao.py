@@ -167,6 +167,8 @@ def test_apply_wrapper_on_cpu():
     with pytest.raises(NotImplementedError):
         tsao.sao_apply(rec, typ, aux, offs, ctb=16, xpad=16)
     with pytest.raises(NotImplementedError):
+        tsao.sao_apply(rec, typ, aux, offs, ctb=16, lvalid=True)
+    with pytest.raises(TypeError):  # bd 10 takes uint16 planes
         tsao.sao_apply(rec, typ, aux, offs, ctb=16, bd=10)
     with pytest.raises(TypeError):
         tsao.sao_apply(rec.to(torch.int32), typ, aux, offs, ctb=16)
@@ -192,6 +194,66 @@ def test_apply_planes_matches_plane_calls_and_reference():
         np.testing.assert_array_equal(want, g.numpy())
         assert torch.equal(g, tsao.sao_apply_plain(T(rec), T(typ), T(aux), T(offs), ctb=ctb))
         assert not np.array_equal(rec, g.numpy())
+
+
+@pytest.mark.parametrize("ctb", [8, 16])
+@pytest.mark.parametrize("mode", ["mixed", "edge", "band"])
+def test_apply_plain_bd10_matches(mode, ctb):
+    """The 10-bit mode on CTB-aligned planes: uint16 in and out, equal to the
+    reference's XLA form and its Pallas strip kernel (interpret mode) at
+    bd 10."""
+    rng = np.random.default_rng(40 + ctb)
+    h, w = 4 * ctb, 6 * ctb
+    rec = rng.integers(0, 1024, (h, w)).astype(np.uint16)
+    typ, aux, offs = _apply_params(mode, h // ctb, w // ctb, seed=50 + ctb + len(mode))
+    jargs = (jnp.asarray(typ), jnp.asarray(aux), jnp.asarray(offs))
+    xla = np.asarray(jsao._sao_apply_xla(jnp.asarray(rec), *jargs, ctb=ctb, bd=10))
+    pallas = np.asarray(jsao._sao_apply_pallas(jnp.asarray(rec, jnp.int32), *jargs, ctb=ctb,
+                                               bd=10, interpret=True))
+    got = tsao.sao_apply_plain(T(rec), T(typ), T(aux), T(offs), ctb=ctb, bd=10)
+    assert got.dtype == torch.uint16 and xla.dtype == np.uint16
+    np.testing.assert_array_equal(xla, got.numpy())
+    np.testing.assert_array_equal(pallas, got.numpy())
+    assert not np.array_equal(rec, got.numpy())
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("ctb", [8, 16])
+def test_apply_unaligned_plane_matches(ctb, bd):
+    """A 76x140 plane is no multiple of the CTB: the parameter grids are
+    ceil-sized and the plain version and the wrapper equal the reference's
+    XLA form, which crops the upsampled parameters to the plane."""
+    rng = np.random.default_rng(60 + ctb + bd)
+    h, w = 76, 140
+    cbh, cbw = -(-h // ctb), -(-w // ctb)
+    assert h % ctb or w % ctb
+    dt = np.uint8 if bd == 8 else np.uint16
+    rec = rng.integers(0, 1 << bd, (h, w)).astype(dt)
+    typ, aux, offs = _apply_params("mixed", cbh, cbw, seed=70 + ctb + bd)
+    want = np.asarray(jsao._sao_apply_xla(jnp.asarray(rec), jnp.asarray(typ), jnp.asarray(aux),
+                                          jnp.asarray(offs), ctb=ctb, bd=bd))
+    got = tsao.sao_apply_plain(T(rec), T(typ), T(aux), T(offs), ctb=ctb, bd=bd)
+    np.testing.assert_array_equal(want, got.numpy())
+    assert got.numpy().dtype == want.dtype == dt
+    tsao.reset_launches()
+    assert torch.equal(tsao.sao_apply(T(rec), T(typ), T(aux), T(offs), ctb=ctb, bd=bd), got)
+    assert tsao.LAUNCHES == {"sao": 0}
+
+
+def test_apply_planes_bd10_on_cpu():
+    """Three uint16 planes through the three-plane wrapper at bd 10 equal
+    three plain calls; a uint8 plane at bd 10 raises."""
+    rng = np.random.default_rng(11)
+    planes = []
+    for k, (h, w, ctb) in enumerate(((76, 140, 16), (38, 70, 8), (38, 70, 8))):
+        rec = T(rng.integers(0, 1024, (h, w)).astype(np.uint16))
+        cbh, cbw = -(-h // ctb), -(-w // ctb)
+        planes.append((rec, *(T(a) for a in _apply_params("mixed", cbh, cbw, seed=80 + k)), ctb))
+    got = tsao.sao_apply_planes(planes, bd=10)
+    for (rec, typ, aux, offs, ctb), g in zip(planes, got):
+        assert torch.equal(g, tsao.sao_apply_plain(rec, typ, aux, offs, ctb=ctb, bd=10))
+    with pytest.raises(TypeError):
+        tsao.sao_apply_planes([(planes[0][0].to(torch.uint8), *planes[0][1:])], bd=10)
 
 
 # ---------------------------------------------------------------- the slice

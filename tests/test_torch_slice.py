@@ -97,7 +97,7 @@ def test_cpu_encode_launches_no_kernel(frames):
 
 @pytest.mark.parametrize("kw", [dict(slices=2), dict(cu_qp_delta=True),
                                 dict(ctb_log2=5, min_cb_log2=3, max_tb_log2=5),
-                                dict(rdoq=True), dict(temporal_mvp=True),
+                                dict(rdoq=True), dict(bit_depth=10),
                                 dict(fast_decision=False)])
 def test_unported_configs_raise(kw):
     with pytest.raises(NotImplementedError):
@@ -114,7 +114,8 @@ def test_cli_encode_matches_encoder(frames, tmp_path, runs):
                  "--device", "cpu"]) == 0
     assert out.read_bytes() == b"".join(runs[1][0][:2])
     with pytest.raises(NotImplementedError):
-        main(["encode", str(src), str(out), "--size", f"{W}x{H}", "--tmvp", "--device", "cpu"])
+        main(["encode", str(src), str(out), "--size", f"{W}x{H}", "--slices", "2",
+              "--device", "cpu"])
 
 
 def _port_modules():

@@ -3,8 +3,9 @@
 Encodes `kvazzup_tpu.io.yuv.synthetic_frames(W, H, N, seed)` with the JAX
 `Encoder` at the CLI's default low-delay configuration (CTB16, deblocking
 on, merge 1, intra period 64), with `--sao` at the CLI's `--sao`
-configuration (SAO on, which at CTB16 turns WPP on), or with `--ctu 64` at
-the CLI's CTB64 quadtree configuration (min CU 8, max TU 32), and records, per
+configuration (SAO on, which at CTB16 turns WPP on), with `--ctu 64` at
+the CLI's CTB64 quadtree configuration (min CU 8, max TU 32), and with
+`--merge`, `--wpp` and `--tmvp` as the JAX CLI builds them, and records, per
 frame, the SHA-256 and byte length of the Annex-B output plus a SHA-256 of
 the reconstruction.  `chip_smoke.py` encodes the same frames with
 `kvazzup_tpu_torch` on the GPU and compares against these files.
@@ -14,6 +15,10 @@ Runs on the CPU (JAX only; the port's package is not imported):
     python tools/torch_golden.py            # 1920x1080, 4 frames, QP 32
     python tools/torch_golden.py --sao      # the same with SAO + WPP
     python tools/torch_golden.py --ctu 64 --sao   # CTB64 quadtree with SAO
+    python tools/torch_golden.py --ctu 64 --wpp --sao --merge 5 --tmvp \
+        --out kvazzup_tpu_torch/golden/ld64_prod_1080p_q32.json
+    python tools/torch_golden.py --merge 5 --tmvp \
+        --out kvazzup_tpu_torch/golden/ld_tmvp_1080p_q32.json
     python tools/torch_golden.py --width 96 --height 64 --out /tmp/g.json
 """
 
@@ -61,17 +66,22 @@ def main(argv=None) -> int:
                     help="SAO on (and WPP, as the JAX CLI sets it at CTB16)")
     ap.add_argument("--ctu", type=int, choices=(16, 64), default=16,
                     help="CTB size: 16, or the 64 quadtree (min CU 8, max TU 32)")
+    ap.add_argument("--wpp", action="store_true", help="wavefront entry points")
+    ap.add_argument("--tmvp", action="store_true", help="temporal motion vector prediction")
     ap.add_argument("--out", default=None,
                     help="default: kvazzup_tpu_torch/golden/ld[64][_sao]_1080p_q32.json")
     args = ap.parse_args(argv)
     if args.out is None:
+        if args.wpp or args.tmvp or args.merge != 1:
+            ap.error("--wpp, --tmvp and --merge need --out")
         name = f"ld{'64' if args.ctu == 64 else ''}{'_sao' if args.sao else ''}_1080p_q32.json"
         args.out = os.path.join(GOLDEN_DIR, name)
 
     quad = args.ctu == 64
     cfg = StreamConfig.for_source(args.width, args.height, qp=args.qp,
                                   merge_cand=args.merge, sao_enabled=args.sao,
-                                  wpp=args.sao and not quad, ctb_log2=6 if quad else 4,
+                                  wpp=args.wpp or (args.sao and not quad),
+                                  temporal_mvp=args.tmvp, ctb_log2=6 if quad else 4,
                                   min_cb_log2=3 if quad else 4, max_tb_log2=5 if quad else 4)
     enc = Encoder(cfg, intra_period=args.intra_period)
     frames = synthetic_frames(args.width, args.height, args.frames, seed=args.seed)

@@ -1,10 +1,13 @@
 """Where the time goes in the PyTorch port's 1080p low-delay encode (GPU).
 
     python tools/torch_profile.py [--width 1920 --height 1080 --qp 32] [--ctu 16|64]
+        [--prod]
 
 Warms up on a throwaway encoder (IDR + P), then for one IDR and one P
-frame of `synthetic_frames(W, H, 3, seed=12)` at CTB 16 (default) or the
-CTB64 quadtree (`--ctu 64`, with SAO):
+frame of `synthetic_frames(W, H, 3, seed=12)` at CTB 16 (default), the
+CTB64 quadtree (`--ctu 64`, with SAO) or the JAX package's production
+combo (`--prod`: `--ctu 64 --wpp --sao --merge 5 --tmvp`; its profiled P
+frame is the second, the first that reads a motion store):
   * times each stage with the host clock around work that ends in
     torch.cuda.synchronize() (prepasses, the wave loop, deblocking, and
     the `--sao` path's SAO decisions and application on the deblocked IDR
@@ -88,9 +91,11 @@ def main(argv=None) -> int:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--qp", type=int, default=32)
     ap.add_argument("--ctu", type=int, choices=(16, 64), default=16)
+    ap.add_argument("--prod", action="store_true",
+                    help="the production combo --ctu 64 --wpp --sao --merge 5 --tmvp")
     args = ap.parse_args(argv)
     dev = runtime.require_cuda()
-    if args.ctu == 64:
+    if args.ctu == 64 or args.prod:
         return profile_ctb64(args, dev)
     cfg = stream_config(args.width, args.height, qp=args.qp)
     w, h, qp = cfg.width, cfg.height, cfg.qp
@@ -174,12 +179,13 @@ def profile_frames(cfg, runs) -> dict:
 
 
 def profile_ctb64(args, dev) -> int:
-    """The CTB64 quadtree path with SAO: prepass, wave loop, deblocking and
-    SAO stage times of an IDR and a P frame, then the profiler's view of
-    each frame's device stage."""
+    """The CTB64 quadtree path with SAO (and with `--prod` WPP, merge 5 and
+    TMVP): prepass, wave loop, deblocking and SAO stage times of an IDR and
+    a P frame, then the profiler's view of each frame's device stage."""
     from kvazzup_tpu_torch.encoder import frame_inter64
 
-    cfg = stream_config(args.width, args.height, qp=args.qp, sao=True, ctu=64)
+    prod = dict(wpp=True, merge=5, tmvp=True) if args.prod else {}
+    cfg = stream_config(args.width, args.height, qp=args.qp, sao=True, ctu=64, **prod)
     w, h, qp = cfg.width, cfg.height, cfg.qp
     nctb = cfg.ctbs_w * cfg.ctbs_h
     cw, ch = cfg.ctbs_w, cfg.ctbs_h
@@ -216,7 +222,8 @@ def profile_ctb64(args, dev) -> int:
         frame_intra.cost_prepass_grid(yi, oy32, lam32, log2=5, cw=2 * cw, ch=2 * ch),
         frame_intra.cost_prepass_grid(yi, oy16, lam16, log2=4, cw=4 * cw, ch=4 * ch)])
     _, stages["p64_total"] = timed(lambda: frame_inter64.encode_frame_p64_fast(
-        y, u, v, *ref, qp, width=w, height=h))
+        y, u, v, *ref, qp, width=w, height=h, merge_cand=cfg.merge_cand,
+        tmvp=cfg.temporal_mvp))
     stages["p64_wave_loop_and_rest"] = (stages["p64_total"]
                                         - stages["p64_motion_search_64_32_16"]
                                         - stages["p64_intra_estimates_32_16"])
@@ -230,10 +237,13 @@ def profile_ctb64(args, dev) -> int:
         print(f"{k:28s} {t:10.3f} ms", flush=True)
 
     enc = Encoder(cfg, intra_period=64, device=dev)
-    prof = profile_frames(cfg, (("idr64", lambda: enc.encode_frame_device(*raw[0])),
-                                ("p64", lambda: enc.encode_frame_device(*raw[1]))))
-    print(json.dumps({"card": torch.cuda.get_device_name(0), "ctu": 64, "stages_ms": stages,
-                      "profile": prof}), flush=True)
+    prof = profile_frames(cfg, (("idr64", lambda: enc.encode_frame_device(*raw[0])),))
+    if cfg.temporal_mvp:  # the first P frame fills the motion store, unprofiled
+        enc.encode_frame_device(*raw[1])
+    prof.update(profile_frames(cfg, (("p64", lambda: enc.encode_frame_device(
+        *raw[2 if cfg.temporal_mvp else 1])),)))
+    print(json.dumps({"card": torch.cuda.get_device_name(0), "ctu": 64, "prod": args.prod,
+                      "stages_ms": stages, "profile": prof}), flush=True)
     return 0
 
 
