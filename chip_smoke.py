@@ -9,7 +9,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      apply, the P wave's merge search) against its plain PyTorch version on
      the card at the 1080p main-path shapes of the CTB16 and CTB64 paths
      (SATD also at 4x4, 8x8, 32x32 and 64x64 blocks; quant and dequant at
-     the CTB64 path's 32x32 transform shapes; SATD at the CTB64 wave's
+     the CTB64 path's 32x32 transform shapes; dequant at the RDOQ route's
+     stacked chroma shapes; SATD at the CTB64 wave's
      arbitration shapes with 1 and 5 merge candidates; the residual kernel
      over a CU32's two 16x16 chroma blocks (512 threads); the merge search
      at 1, 3 and 5 candidates with MVs that leave the window and tied
@@ -17,20 +18,29 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      at a time, and at bit depths 8 and 10 on planes that are no CTB
      multiple (1080x1920 at CTB 64, 540x960 at CTB 32)), element-identical
      (tolerance 0; float32 outputs bit for bit), plus first-index
-     tie-breaking of argmin, stable sort and its top-k;
-  3. five 1920x1080 IDR + 3 P encodes of synthetic_frames(1920, 1080, 4,
-     seed=12) at QP 32 through `Encoder` on cuda: the CLI defaults,
+     tie-breaking of argmin, stable sort and its top-k, and RDOQ
+     (`quant.quantize_rdoq`, plain PyTorch) on the card equal to the CPU at
+     all 52 QPs and 4x4 to 32x32 blocks;
+  3. seven 1920x1080 encodes of synthetic_frames(1920, 1080, 4, seed=12)
+     at QP 32 through `Encoder` on cuda, IDR + 3 P (`--sao` IDR + 2 P and
+     `--ctu 64 --sao` IDR + P, prefixes of their goldens): the CLI defaults,
      `--sao` (SAO + WPP), `--ctu 64 --sao` (the CTB64 quadtree with SAO),
      the JAX package's production combo `--ctu 64 --wpp --sao --merge 5
-     --tmvp`, and CTB16 `--merge 5 --tmvp`.  Each is held against its JAX
-     golden (kvazzup_tpu_torch/golden/ld_1080p_q32.json,
-     ld_sao_1080p_q32.json, ld64_sao_1080p_q32.json,
-     ld64_prod_1080p_q32.json, ld_tmvp_1080p_q32.json): per-frame bytes,
-     stream SHA-256 and recon SHA-256; each prints its per-frame device and
-     entropy times and the launch count of every kernel, counted from 0
-     over that encode alone; every kernel the path runs must launch,
-     exactly as often as its code launches it (`expected_launches`);
-  4. kernel vs plain times at the main-path shapes (CUDA events around 20
+     --tmvp`, CTB16 `--merge 5 --tmvp`, and `--rdoq` at CTB16 and with the
+     production combo.  Each is held against its JAX golden
+     (kvazzup_tpu_torch/golden/ld_1080p_q32.json, ld_sao_1080p_q32.json,
+     ld64_sao_1080p_q32.json, ld64_prod_1080p_q32.json,
+     ld_tmvp_1080p_q32.json, ld_rdoq_1080p_q32.json,
+     ld64_prod_rdoq_1080p_q32.json): per-frame bytes, stream SHA-256 and
+     recon SHA-256; each prints its per-frame device and entropy times and
+     the launch count of every kernel, counted from 0 over that encode
+     alone; every kernel the path runs must launch, exactly as often as its
+     code launches it (`expected_launches`);
+  4. `PipelinedEncoder` (depth 3) over every frame of ld_1080p_q32.json and
+     the first two of ld64_prod_1080p_q32.json, each frame held against the
+     golden, launches as counted; prints the e2e frame rate and the stage
+     seconds beside phase 3's sequential times of the same frames;
+  5. kernel vs plain times at the main-path shapes (CUDA events around 20
      calls, the least of 5 runs: at the wave shapes this is the wrapper's
      host path per call), the kernel's own device time per call
      (torch.profiler, mean of 20 calls), beside each kernel's bound (bytes
@@ -56,18 +66,28 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from kvazzup_tpu_torch import runtime
+from kvazzup_tpu_torch.encoder.pipelined import PipelinedEncoder
 from kvazzup_tpu_torch.encoder.top import Encoder
 from kvazzup_tpu_torch.encoder.wavefront import schedule_r
 from kvazzup_tpu_torch.inputs import stream_config, synthetic_frames
-from kvazzup_tpu_torch.ops import hopper_q, merge, sao
+from kvazzup_tpu_torch.ops import hopper_q, merge, quant, sao
 from kvazzup_tpu_torch.ops.mc import sheared_ref_strips, strip_window_slice
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(ROOT, "kvazzup_tpu_torch", "golden")
-PATHS = (("low-delay", "ld_1080p_q32.json"), ("low-delay --sao", "ld_sao_1080p_q32.json"),
-         ("low-delay --ctu 64 --sao", "ld64_sao_1080p_q32.json"),
-         ("low-delay --ctu 64 --wpp --sao --merge 5 --tmvp", "ld64_prod_1080p_q32.json"),
-         ("low-delay --merge 5 --tmvp", "ld_tmvp_1080p_q32.json"))
+# phase 3: (configuration, golden, frames encoded: a prefix of the golden's).
+# The CTB16 --sao path (the Python CABAC tier) and CTB64 --sao (the kernels
+# and launch rules of the production combo, which runs in full) are cut in
+# depth to keep the script inside its time limit.
+PATHS = (("low-delay", "ld_1080p_q32.json", 4), ("low-delay --sao", "ld_sao_1080p_q32.json", 3),
+         ("low-delay --ctu 64 --sao", "ld64_sao_1080p_q32.json", 2),
+         ("low-delay --ctu 64 --wpp --sao --merge 5 --tmvp", "ld64_prod_1080p_q32.json", 4),
+         ("low-delay --merge 5 --tmvp", "ld_tmvp_1080p_q32.json", 4),
+         ("low-delay --rdoq", "ld_rdoq_1080p_q32.json", 4),
+         ("low-delay --ctu 64 --wpp --sao --merge 5 --tmvp --rdoq",
+          "ld64_prod_rdoq_1080p_q32.json", 4))
+# phase 4: (golden, frames) through PipelinedEncoder
+PIPELINED = (("ld_1080p_q32.json", 4), ("ld64_prod_1080p_q32.json", 2))
 SOURCE = {"satd": "kvazzup_tpu_torch/csrc/q_kernels.cu",
           "quant": "kvazzup_tpu_torch/csrc/q_kernels.cu",
           "dequant": "kvazzup_tpu_torch/csrc/q_kernels.cu",
@@ -219,6 +239,21 @@ def kernel_cases(dev):
             lambda c=c, qp=qp, dz=dz, l=log2: hopper_q.quantize_rows(c, qp, dz, l),
             lambda c=c, qp=qp, dz=dz, l=log2: hopper_q.quantize_rows_plain(c, qp, dz, l),
             (c, qp, dz))
+        add("dequant", label,
+            lambda lv=lv, qp=qp, l=log2: hopper_q.dequantize_rows(lv, qp, l),
+            lambda lv=lv, qp=qp, l=log2: hopper_q.dequantize_rows_plain(lv, qp, l),
+            (lv, qp))
+    # the RDOQ route dequantizes a unit's Cb and Cr rows in one launch: the
+    # CTB16 wave's (2 * 68, 64), a CTB64 CU16's (2 * 17, 64) and CU32's
+    # (2 * 17, 256), the CU64 leaf's eight chroma TU16s (8 * 17, 256); and a
+    # CU16's luma (17, 256)
+    for rows, k, log2, label in ((2 * LANES, 64, 3, "RDOQ wave chroma (136,64)"),
+                                 (LANES64, 256, 4, "RDOQ CU16 luma (17,256)"),
+                                 (2 * LANES64, 64, 3, "RDOQ CU16 chroma (34,64)"),
+                                 (2 * LANES64, 256, 4, "RDOQ CU32 chroma (34,256)"),
+                                 (8 * LANES64, 256, 4, "RDOQ CU64 chroma (136,256)")):
+        lv = t(rng.integers(-32768, 32768, (rows, k)).astype(np.int32))
+        qp = qrows(rows)
         add("dequant", label,
             lambda lv=lv, qp=qp, l=log2: hopper_q.dequantize_rows(lv, qp, l),
             lambda lv=lv, qp=qp, l=log2: hopper_q.dequantize_rows_plain(lv, qp, l),
@@ -465,22 +500,66 @@ def check_ties(dev) -> None:
     log("  argmin / stable-sort / top-k ties: first index wins")
 
 
-def encode_1080p(dev, golden) -> tuple[list, dict]:
-    """Encode the golden's frames with its configuration and hold every
-    frame against it; returns the per-frame rows and the kernel launches
-    of the measured encode alone."""
-    w, h, nf = golden["width"], golden["height"], golden["n_frames"]
+def check_rdoq(dev) -> None:
+    """RDOQ is plain PyTorch on every device: on the card it must equal the
+    CPU element for element (no TF32, no device-specific rounding in its
+    float32 costs) at every QP, block size and deadzone, with coefficients
+    up to |32767| and lambda^2 from 0.05 to 10^5."""
+    rng = np.random.default_rng(52)
+    for log2 in (2, 3, 4, 5):
+        for intra in (True, False):
+            qp = torch.from_numpy(np.repeat(np.arange(52, dtype=np.int32), 16))
+            shape = (len(qp), 1 << 2 * log2)
+            coef = torch.from_numpy((rng.choice([-1, 1], shape) * np.exp(
+                rng.uniform(0, np.log(32767), shape))).astype(np.int32))
+            lam2 = torch.from_numpy(np.exp(rng.uniform(-3, np.log(1e5), len(qp)))
+                                    .astype(np.float32))
+            want = quant.quantize_rdoq(coef, qp, log2, lam2, intra)
+            got = quant.quantize_rdoq(coef.to(dev), qp.to(dev), log2, lam2.to(dev), intra)
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"quantize_rdoq on cuda differs from the CPU at {log2=}, "
+                                     f"{intra=}")
+    log("  quantize_rdoq on cuda == on the CPU: 52 QPs x 4x4..32x32 x intra / inter")
+
+
+def golden_config(golden):
+    """The stream configuration a golden was written with."""
     gcfg = golden["config"]
-    with_sao = gcfg["sao"]
-    cfg = stream_config(w, h, qp=golden["qp"], merge=golden["merge_cand"], sao=with_sao,
-                        wpp=gcfg["wpp"], tmvp=gcfg["tmvp"], ctu=1 << gcfg["ctb_log2"])
-    if ((cfg.sao_enabled, cfg.wpp, cfg.temporal_mvp, cfg.ctb_log2)
-            != (with_sao, gcfg["wpp"], gcfg["tmvp"], gcfg["ctb_log2"])
+    cfg = stream_config(golden["width"], golden["height"], qp=golden["qp"],
+                        merge=golden["merge_cand"], sao=gcfg["sao"], wpp=gcfg["wpp"],
+                        tmvp=gcfg["tmvp"], rdoq=gcfg["rdoq"], ctu=1 << gcfg["ctb_log2"])
+    if ((cfg.sao_enabled, cfg.wpp, cfg.temporal_mvp, cfg.rdoq, cfg.ctb_log2)
+            != (gcfg["sao"], gcfg["wpp"], gcfg["tmvp"], gcfg["rdoq"], gcfg["ctb_log2"])
             or cfg.min_cb_log2 != gcfg.get("min_cb_log2", cfg.min_cb_log2)
             or cfg.max_tb_log2 != gcfg.get("max_tb_log2", cfg.max_tb_log2)):
         raise AssertionError(f"configuration differs from the golden's: {gcfg}")
-    python_cabac = with_sao and cfg.ctb_log2 == 4  # SAO at CTB16: the Python tier
-    frames = synthetic_frames(w, h, nf, seed=golden["seed"])
+    return cfg
+
+
+def recon_sha256(recon) -> str:
+    return hashlib.sha256(b"".join(np.ascontiguousarray(p).tobytes() for p in recon)).hexdigest()
+
+
+def check_launches(cfg, kinds, counts) -> None:
+    """Every kernel of the path launched, exactly as `expected_launches`
+    counts for frames of `kinds`."""
+    want = expected_launches(cfg, kinds)
+    zero = [k for k, v in want.items() if v and counts[k] <= 0]
+    if zero:
+        raise AssertionError(f"kernels never launched on the main path: {zero}")
+    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if bad:
+        raise AssertionError(f"launches per encode (got, expected): {bad}")
+
+
+def encode_1080p(dev, golden, n: int) -> tuple[list, dict]:
+    """Encode the first n of the golden's frames with its configuration and
+    hold every frame against it; returns the per-frame rows and the kernel
+    launches of the measured encode alone."""
+    w, h = golden["width"], golden["height"]
+    cfg = golden_config(golden)
+    python_cabac = cfg.sao_enabled and cfg.ctb_log2 == 4  # SAO at CTB16: the Python tier
+    frames = synthetic_frames(w, h, n, seed=golden["seed"])
     # warm-up on a throwaway encoder (one IDR and one P): cuBLAS handles,
     # allocator pools, constant tables; the first path also builds the
     # native CABAC library, the CTB16 SAO path warms only its device stage
@@ -503,8 +582,7 @@ def encode_1080p(dev, golden) -> tuple[list, dict]:
         t2 = time.perf_counter()
         rows.append({"frame": i, "kind": ctx["kind"], "bytes": len(stream),
                      "sha256": hashlib.sha256(stream).hexdigest(),
-                     "recon_sha256": hashlib.sha256(b"".join(
-                         np.ascontiguousarray(p).tobytes() for p in recon)).hexdigest(),
+                     "recon_sha256": recon_sha256(recon),
                      "device_ms": (t1 - t0) * 1e3, "entropy_ms": (t2 - t1) * 1e3,
                      "recon_shape": [list(p.shape) for p in recon]})
     counts = launches()
@@ -518,18 +596,51 @@ def encode_1080p(dev, golden) -> tuple[list, dict]:
     bad = [r["frame"] for r, g in zip(rows, golden["frames"])
            if r["sha256"] != g["sha256"] or r["bytes"] != g["bytes"]
            or r["recon_sha256"] != g["recon_sha256"]]
-    if len(rows) != len(golden["frames"]) or bad:
+    if len(rows) != n or n > len(golden["frames"]) or bad:
         raise AssertionError(f"1080p stream or recon differs from the JAX golden in frames {bad}")
     if rows[0]["recon_shape"] != [[h, w], [h // 2, w // 2], [h // 2, w // 2]]:
         raise AssertionError(f"unexpected recon shape {rows[0]['recon_shape']}")
-    want = expected_launches(cfg, [r["kind"] for r in rows])
-    zero = [k for k, v in want.items() if v and counts[k] <= 0]
-    if zero:
-        raise AssertionError(f"kernels never launched on the main path: {zero}")
-    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
-    if bad:
-        raise AssertionError(f"launches per encode (got, expected): {bad}")
+    check_launches(cfg, [r["kind"] for r in rows], counts)
     return rows, counts
+
+
+def pipelined_1080p(dev, golden, n: int, seq_rows) -> tuple[dict, dict]:
+    """The golden's first n frames through PipelinedEncoder (depth 3, recon
+    fetched), every frame held against the golden; returns the e2e figures
+    beside the sequential encode's (`seq_rows`, phase 3) and the launches."""
+    cfg = golden_config(golden)
+    frames = synthetic_frames(golden["width"], golden["height"], n, seed=golden["seed"])
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with PipelinedEncoder(cfg, intra_period=golden["intra_period"], depth=3,
+                          device=dev) as pe:
+        out = []
+        for f in frames:
+            out += pe.push(*f)
+        out += pe.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stage = dict(pe.stage)
+    counts = launches()
+    bad = [i for i, ((s, r), g) in enumerate(zip(out, golden["frames"]))
+           if hashlib.sha256(s).hexdigest() != g["sha256"] or len(s) != g["bytes"]
+           or recon_sha256(r) != g["recon_sha256"]]
+    if len(out) != n or bad:
+        raise AssertionError(f"pipelined stream or recon differs from the golden in {bad}")
+    quad = cfg.ctb_log2 == 6
+    kinds = [("quad" if quad else "idr") if i % golden["intra_period"] == 0
+             else ("quad_p" if quad else "p") for i in range(n)]
+    check_launches(cfg, kinds, counts)
+    seq_s = sum(r["device_ms"] + r["entropy_ms"] for r in seq_rows[:n]) / 1e3
+    res = {"frames": n, "wall_s": wall, "e2e_fps": n / wall, "sequential_s": seq_s,
+           "sequential_fps": n / seq_s, **stage}
+    log(f"  {n} frames match the golden; e2e {res['e2e_fps']:.3f} fps ({wall:.2f} s) "
+        f"against sequential {res['sequential_fps']:.3f} fps ({seq_s:.2f} s: "
+        f"device + entropy of phase 3); fetch {stage['fetch_s']:.3f} s, "
+        f"{stage['fetch_bytes']} bytes; cabac {stage['cabac_s']:.3f} s")
+    log(f"  kernel launches during the pipelined encode: {counts}")
+    return res, counts
 
 
 def expected_launches(cfg, kinds) -> dict:
@@ -553,14 +664,29 @@ def expected_launches(cfg, kinds) -> dict:
     wave 21 arbitrations (one SATD each: four CU32s, sixteen CU16s, the
     CU64), one residual launch per CU32 and CU16 and one for the CU64
     leaf's eight chroma TU16s, quant + dequant per CU32 and once for the
-    CU64's four TU32s.  SAO once per frame with SAO on; no merge search."""
+    CU64's four TU32s.  SAO once per frame with SAO on; no merge search.
+
+    With RDOQ the prepasses are unchanged and every wave's residual coding
+    takes the RDOQ route: no residual or quant launch, one dequant launch
+    per block size of a unit (Cb and Cr stacked).  CTB16: 2 a wave (luma
+    16x16, chroma 8x8).  CTB64 IDR: per 32-quadrant a CU32 (32x32, 16x16)
+    and four CU16s (16x16, 8x8), and the CU64 leaf's four units (32x32,
+    16x16): 48 a wave.  CTB64 P: four CU32s and sixteen CU16s (2 each) and
+    the CU64 leaf's TU32 luma and TU16 chroma (1 each): 42 a wave."""
     n_waves = schedule_r(cfg.ctbs_w, cfg.ctbs_h)["n_waves"]
     n_idr = sum(k in ("idr", "quad") for k in kinds)
     n_p = len(kinds) - n_idr
     sao_n = len(kinds) if cfg.sao_enabled else 0
     if cfg.ctb_log2 == 4:
-        return {"residual": len(kinds) * n_waves + n_idr, "merge": n_p * n_waves,
-                "satd": n_idr + 2 * n_p, "sao": sao_n, "quant": 0, "dequant": 0}
+        counts = {"residual": len(kinds) * n_waves + n_idr, "merge": n_p * n_waves,
+                  "satd": n_idr + 2 * n_p, "sao": sao_n, "quant": 0, "dequant": 0}
+        if cfg.rdoq:
+            counts.update(residual=n_idr, dequant=2 * len(kinds) * n_waves)
+        return counts
+    if cfg.rdoq:
+        return {"residual": n_idr, "merge": 0, "satd": 2 * n_idr + n_p * (5 + 21 * n_waves),
+                "sao": sao_n, "quant": 2 * n_idr,
+                "dequant": n_idr * (2 + 48 * n_waves) + n_p * 42 * n_waves}
     q = n_idr * (2 + 8 * n_waves) + n_p * 5 * n_waves
     return {"residual": n_idr * (1 + 24 * n_waves) + n_p * 21 * n_waves, "merge": 0,
             "satd": 2 * n_idr + n_p * (5 + 21 * n_waves), "sao": sao_n, "quant": q,
@@ -586,19 +712,28 @@ def main() -> int:
     cases = kernel_cases(dev)
     errs = check_kernels(cases)
     check_ties(dev)
+    check_rdoq(dev)
 
-    frames, total = {}, dict.fromkeys(KERNELS, 0)
-    for label, name in PATHS:
-        log(f"phase 3: 1080p IDR+3P {label} encode on cuda vs JAX golden {name}")
+    frames, total, seq, goldens = {}, dict.fromkeys(KERNELS, 0), {}, {}
+    for label, name, n in PATHS:
+        log(f"phase 3: 1080p IDR+{n - 1}P {label} encode on cuda vs JAX golden {name}")
         with open(os.path.join(GOLDEN_DIR, name)) as f:
-            golden = json.load(f)
-        rows, counts = encode_1080p(dev, golden)
+            goldens[name] = json.load(f)
+        rows, counts = encode_1080p(dev, goldens[name], n)
+        seq[name] = rows
         frames[label] = [{k: r[k] for k in ("frame", "kind", "bytes", "device_ms",
                                              "entropy_ms")} for r in rows]
         for k in KERNELS:
             total[k] += counts[k]
 
-    log("phase 4: kernel vs plain times (CUDA events, mean of 20 calls, least of 5 runs; "
+    pipelined = {}
+    for name, n in PIPELINED:
+        log(f"phase 4: PipelinedEncoder (depth 3), 1080p, the first {n} frames of {name}")
+        pipelined[name], counts = pipelined_1080p(dev, goldens[name], n, seq[name])
+        for k in KERNELS:
+            total[k] += counts[k]
+
+    log("phase 5: kernel vs plain times (CUDA events, mean of 20 calls, least of 5 runs; "
         "device: profiler, mean of 20 calls)")
     times = {}
     for name, label, kfn, pfn, operands, n_ops in cases:
@@ -615,7 +750,7 @@ def main() -> int:
                 "plain_ms": times[n][1], "bound_ms": times[n][2], "bound_by": times[n][3],
                 "library_ms": None, "device_ms": times[n][4]}
                for n in KERNELS]
-    log(json.dumps({"frames": frames}))
+    log(json.dumps({"frames": frames, "pipelined": pipelined}))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

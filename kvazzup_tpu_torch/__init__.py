@@ -9,8 +9,10 @@ parameter sets in `core/`, the CABAC writer and its native C library in
 `entropy/` and `native/`, the wavefront schedule, YUV I/O in `io/`) are
 copies of the JAX package's, at the same relative paths.
 
-Scope: the CLI's low-delay encode at CTB16 (IDR + P, deblocking), with or
-without SAO + WPP (`--sao`, `--wpp`).
+Scope: the CLI's low-delay encode at CTB16 and CTB64 (IDR + P, merge 1..5,
+TMVP, deblocking, SAO, WPP, RDOQ), frame-level rate control
+(`pipeline.rate_control`) and the frame-pipelined encoder
+(`encoder.pipelined`).
 """
 
 from . import runtime  # noqa: F401  (fixes the float32 matmul precision)

@@ -3,12 +3,15 @@
 
     python -m kvazzup_tpu_torch encode in.y4m out.265 [--qp 32] [--frames N]
         [--size WxH] [--intra-period 64] [--merge 1..5] [--no-deblock]
-        [--sao] [--wpp] [--tmvp] [--ctu 16|64] [--device cuda|cpu]
+        [--sao] [--wpp] [--tmvp] [--rdoq] [--ctu 16|64]
+        [--bitrate BPS [--fps 30]] [--device cuda|cpu]
 
 `--sao` turns WPP on as well at CTB16 (the JAX CLI's rule without tiles);
 `--ctu 64` is the CTB64 quadtree (CUs 64 down to 8, TUs up to 32), where
 WPP is `--wpp` alone.  The JAX package's production configuration is
-`--ctu 64 --wpp --sao --merge 5 --tmvp`.
+`--ctu 64 --wpp --sao --merge 5 --tmvp`.  `--rdoq` quantizes by RDOQ;
+`--bitrate` picks each frame's QP by the rate controller of
+`pipeline.rate_control` (`--qp` is its starting QP), as the JAX CLI does.
 
 Flags of the JAX CLI that select other configurations are accepted only at
 their default value; anything else raises NotImplementedError.
@@ -22,8 +25,7 @@ import time
 
 # flag -> default value; any other value selects an unported path
 _UNPORTED = {"tiles": 1, "slices": 1,
-             "tu_intra_depth": 1, "cu8": False, "rdoq": False,
-             "bitdepth": 8, "gop": "ld", "bitrate": 0}
+             "tu_intra_depth": 1, "cu8": False, "bitdepth": 8, "gop": "ld"}
 
 
 def _read_input(path: str, size: str | None, max_frames: int | None):
@@ -52,14 +54,26 @@ def cmd_encode(args) -> int:
     if not frames:
         raise SystemExit("no frames read")
     cfg = stream_config(w, h, qp=args.qp, deblock=not args.no_deblock, merge=args.merge,
-                        sao=args.sao, wpp=args.wpp, tmvp=args.tmvp, ctu=args.ctu)
+                        sao=args.sao, wpp=args.wpp, tmvp=args.tmvp, rdoq=args.rdoq,
+                        ctu=args.ctu)
+    rc = None
+    if args.bitrate:
+        from .pipeline.rate_control import RateController
+
+        rc = RateController(args.bitrate, args.fps, base_qp=args.qp)
     enc = Encoder(cfg, intra_period=args.intra_period, device=args.device)
     t0 = time.time()
     total_psnr = 0.0
     nbytes = 0
     with open(args.output, "wb") as f:
-        for (y, u, v) in frames:
-            stream, recon = enc.encode_frame(y, u, v)
+        for i, (y, u, v) in enumerate(frames):
+            qp_i = None
+            is_idr = i % args.intra_period == 0
+            if rc is not None:
+                qp_i = rc.frame_qp(is_idr)
+            stream, recon = enc.encode_frame(y, u, v, qp=qp_i)
+            if rc is not None:
+                rc.update(qp_i, len(stream) * 8, is_idr)
             f.write(stream)
             nbytes += len(stream)
             total_psnr += psnr(y, recon[0])
@@ -77,6 +91,9 @@ def main(argv=None) -> int:
     pe.add_argument("input")
     pe.add_argument("output")
     pe.add_argument("--qp", type=int, default=32)
+    pe.add_argument("--bitrate", type=int, default=0,
+                    help="target bits/s: per-frame QP from the rate controller (0: fixed QP)")
+    pe.add_argument("--fps", type=float, default=30.0, help="frame rate for --bitrate")
     pe.add_argument("--size", help="WxH for raw .yuv input")
     pe.add_argument("--frames", type=int, default=None)
     pe.add_argument("--intra-period", type=int, default=64)
@@ -85,15 +102,14 @@ def main(argv=None) -> int:
     pe.add_argument("--sao", action="store_true", help="sample adaptive offset (and WPP)")
     pe.add_argument("--wpp", action="store_true", help="wavefront parallel entry points")
     pe.add_argument("--tmvp", action="store_true", help="temporal motion vector prediction")
+    pe.add_argument("--rdoq", action="store_true", help="rate-distortion optimized quantization")
     pe.add_argument("--device", default="cuda", help="torch device (default cuda)")
     # JAX-CLI flags whose non-default values select unported paths
-    pe.add_argument("--bitrate", type=int, default=0)
     pe.add_argument("--tiles", type=int, default=1)
     pe.add_argument("--slices", type=int, default=1)
     pe.add_argument("--ctu", type=int, choices=(16, 32, 64), default=16)
     pe.add_argument("--tu-intra-depth", type=int, choices=(1, 2), default=1)
     pe.add_argument("--cu8", action="store_true")
-    pe.add_argument("--rdoq", action="store_true")
     pe.add_argument("--bitdepth", type=int, choices=(8, 10), default=8)
     pe.add_argument("--gop", choices=["ld", "ra"], default="ld")
     pe.set_defaults(fn=cmd_encode)

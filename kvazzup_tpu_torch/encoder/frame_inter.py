@@ -119,9 +119,9 @@ def encode_frame_p_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int,
     """One P frame against one (deblocked) reference picture; all planes
     uint8 tensors on one device.  With `tmvp`, col_mv (nctu, 2) and
     col_inter (nctu,) are the reference picture's motion per CTU (zeros
-    when omitted).  Output format of the reference."""
-    if rdoq:
-        raise NotImplementedError("RDOQ is not ported")
+    when omitted).  With `rdoq` the wave quantizes by RDOQ at each lane's
+    lambda^2 with its intra / inter deadzone.  Output format of the
+    reference."""
     if not 1 <= merge_cand <= 5:
         raise ValueError("merge_cand must be in 1..5")
     dev = y.device
@@ -237,7 +237,8 @@ def encode_frame_p_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int,
         # the lane's three planes share its intra/inter deadzone
         (lev_y, rec_y), *chroma = code_residual_planes(
             [(oyw, pred_y, qp_w[d], 4), (ou_w[d], pred_c[0], qpc_w[d], 3),
-             (ov_w[d], pred_c[1], qpc_w[d], 3)], use_intra)
+             (ov_w[d], pred_c[1], qpc_w[d], 3)], use_intra,
+            rdoq=rdoq, lam2=lamf * lamf if rdoq else None)
         ry = ring_push(ry, rec_y, n)
         levs_c, recs_c = [lev for lev, _ in chroma], [rec for _, rec in chroma]
         rc = [ring_push(rc[ci], recs_c[ci], m) for ci in (0, 1)]

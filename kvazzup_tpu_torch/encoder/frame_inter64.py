@@ -101,9 +101,11 @@ def temporal_cells(col_mv, col_inter, cw: int, ch: int):
 class _Wave:
     """One wave's state and per-unit coding (the reference's wave body)."""
 
-    def __init__(self, lanes, dev, k, views, origs, qps, lamf, flags, cells, wins):
+    def __init__(self, lanes, dev, k, views, origs, qps, lamf, flags, cells, wins, rdoq):
         self.lanes, self.dev, self.k = lanes, dev, k
         self.views, self.origs, self.qps, self.lamf = views, origs, qps, lamf
+        self.lam2 = lamf * lamf if rdoq else None  # RDOQ's lambda^2 per lane
+        self.rdoq = rdoq
         self.flags = flags
         self.cells = cells  # CTB-edge motion cells from the rings
         self.win64, self.winu, self.winv = wins
@@ -175,7 +177,7 @@ class _Wave:
             oc = self.origs[p][:, yc:yc + m, xc:xc + m].reshape(lanes, m * m)
             planes.append((oc, torch.where(ui[:, None], pred_i, pred_mc[p - 1]), self.qps[p],
                            log2 - 1))
-        out = code_residual_planes(planes, ui)
+        out = code_residual_planes(planes, ui, rdoq=self.rdoq, lam2=self.lam2)
         for p, (cv, (_, rec)) in enumerate(zip(canvases, out)):
             sh = 0 if p == 0 else 1
             nn = n >> sh
@@ -198,9 +200,9 @@ def encode_frame_p64_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int, 
     """CTB64 P frame against one (loop-filtered) reference picture; all
     planes uint8 tensors on one device.  With `tmvp`, col_mv (16 nctb, 2)
     and col_inter (16 nctb,) are the reference picture's motion on the
-    raster 16-grid (`temporal_cells`).  Output format of the reference."""
-    if rdoq:
-        raise NotImplementedError("RDOQ is not ported")
+    raster 16-grid (`temporal_cells`).  With `rdoq` every unit and the
+    CU64 leaf quantize by RDOQ at the lane's lambda^2 (the prepasses keep
+    the deadzone quantizer).  Output format of the reference."""
     if any(xtile):
         raise NotImplementedError("motion-constrained tiles are not ported")
     if not 1 <= merge_cand <= 5:
@@ -311,7 +313,7 @@ def encode_frame_p64_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int, 
                 strip_window_slice(strips_v, d, m, SEARCH_RANGE, chroma=True))
         wv = _Wave(lanes, dev, k, [ring_views(r, sz) for r, sz in zip(rings, (S, m, m))],
                    (oy_w[d], ou_w[d], ov_w[d]), (qp_w[d], qpc_w[d], qpc_w[d]), lam_w[d],
-                   {"fl": fl, "fa": fa, "ftr": ftr, "fal": fl & fa}, cells, wins)
+                   {"fl": fl, "fa": fa, "ftr": ftr, "fal": fl & fa}, cells, wins, rdoq)
 
         # split path: per 32-quadrant the CU32 leaf or four CU16s
         cvs = [torch.zeros((lanes, S >> sh, S >> sh), dtype=torch.int32, device=dev)
@@ -353,12 +355,15 @@ def encode_frame_p64_fast(y, u, v, ref_y, ref_u, ref_v, qp: int, *, width: int, 
         pred64 = mc_luma_window_batch(wins[0], arb64["mv"], S, SEARCH_RANGE)
         pc64 = mc_chroma_window_batch(torch.cat([wins[1], wins[2]]), arb64["mv"].repeat(2, 1),
                                       m, SEARCH_RANGE)
+        l2 = wv.lam2
         lv4, rc4 = code_residual_rows(_quads(oy_w[d], 32).reshape(4 * lanes, -1),
                                       _quads(pred64, 32).reshape(4 * lanes, -1),
-                                      qp_w[d].repeat(4), False, 5)
+                                      qp_w[d].repeat(4), False, 5,
+                                      rdoq=rdoq, lam2=None if l2 is None else l2.repeat(4))
         lc8, rc8 = code_residual_rows(
             _quads(torch.cat([ou_w[d], ov_w[d]]), 16).reshape(8 * lanes, -1),
-            _quads(pc64, 16).reshape(8 * lanes, -1), qpc_w[d].repeat(8), False, 4)
+            _quads(pc64, 16).reshape(8 * lanes, -1), qpc_w[d].repeat(8), False, 4,
+            rdoq=rdoq, lam2=None if l2 is None else l2.repeat(8))
         # quadrant-major blocks of lanes; chroma [quadrant][plane][lane]
         lev64 = [lv4.reshape(4, lanes, -1).unbind(0), lc8.reshape(4, 2, lanes, -1)[:, 0].unbind(0),
                  lc8.reshape(4, 2, lanes, -1)[:, 1].unbind(0)]

@@ -254,10 +254,10 @@ def _select_mode(preds, sel):
 def encode_frame_intra_fast(y, u, v, qp: int, *, width: int, height: int,
                             rdoq: bool = False):
     """IDR frame: y (H, W), u, v (H/2, W/2) uint8 tensors on one device.
+    With `rdoq` the waves quantize by RDOQ at each lane's lambda^2 (the
+    mode prepass keeps the deadzone quantizer, as in the reference).
 
     Returns per-CTU modes and levels (int16) and the reconstruction."""
-    if rdoq:
-        raise NotImplementedError("RDOQ is not ported")
     dev = y.device
     cw, ch = width // N, height // N
     nctu = cw * ch
@@ -268,9 +268,9 @@ def encode_frame_intra_fast(y, u, v, qp: int, *, width: int, height: int,
     modes = rd_prepass_grid(y, oy.reshape(nctu, N * N), qp_rows, lam_rows, log2=4,
                             cw=cw, ch=ch)[0]
 
-    oy_w, ou_w, ov_w, mode_w, qp_w, qpc_w = wave_inputs(
+    oy_w, ou_w, ov_w, mode_w, qp_w, qpc_w, lam_w = wave_inputs(
         sched, nctu, [oy.reshape(nctu, -1), ou.reshape(nctu, -1),
-                      ov.reshape(nctu, -1), modes, qp_rows, qpc_rows])
+                      ov.reshape(nctu, -1), modes, qp_rows, qpc_rows, lam_rows])
     fl_w, fa_w, ftr_w = wave_flags(sched, cw, dev)
     nw = sched["n_waves"]
     lev_y_w = torch.empty((nw, lanes, N * N), dtype=torch.int16, device=dev)
@@ -290,7 +290,8 @@ def encode_frame_intra_fast(y, u, v, qp: int, *, width: int, height: int,
             preds_c.append(_select_mode(ck.predict_all_modes_flat(a_c, 3, False), mode_w[d]))
         (lev_y, rec_y), *chroma = code_residual_planes(
             [(oy_w[d], pred_y, qp_w[d], 4), (ou_w[d], preds_c[0], qpc_w[d], 3),
-             (ov_w[d], preds_c[1], qpc_w[d], 3)], True)
+             (ov_w[d], preds_c[1], qpc_w[d], 3)], True,
+            rdoq=rdoq, lam2=lam_w[d] * lam_w[d] if rdoq else None)
         ry = ring_push(ry, rec_y, N)
         lev_y_w[d] = lev_y
         rec_y_w[d] = rec_y

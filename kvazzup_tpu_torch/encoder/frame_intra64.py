@@ -223,10 +223,10 @@ def _select(preds, mode):
 def encode_frame_intra64_fast(y, u, v, qp: int, *, width: int, height: int,
                               rdoq: bool = False, bit_depth: int = 8):
     """CTB64 IDR frame: y (H, W), u, v (H/2, W/2) uint8 tensors on one
-    device.  Returns the split flags, modes, levels (int16, z-order
-    32-quadrants of each CTB) and the reconstruction."""
-    if rdoq:
-        raise NotImplementedError("RDOQ is not ported")
+    device.  With `rdoq` the waves quantize by RDOQ at each lane's
+    lambda^2 (the prepasses keep the deadzone quantizer).  Returns the
+    split flags, modes, levels (int16, z-order 32-quadrants of each CTB)
+    and the reconstruction."""
     if bit_depth != 8:
         raise NotImplementedError("Main10 (bit_depth 10) is not ported")
     dev = y.device
@@ -256,9 +256,9 @@ def encode_frame_intra64_fast(y, u, v, qp: int, *, width: int, height: int,
     m16z = zquads(zquads(mode16, 4 * cw, 4 * ch), 2 * cw, 2 * ch)
 
     # ---- wave
-    (oy_w, ou_w, ov_w, m64_w, m32_w, m16_w, s64_w, s32_w, qp_w, qpc_w) = wave_inputs(
+    (oy_w, ou_w, ov_w, m64_w, m32_w, m16_w, s64_w, s32_w, qp_w, qpc_w, lam_w) = wave_inputs(
         sched, nctb, [oy64, ou32, ov32, mode64, m32z, m16z, split64, split32, qp_rows,
-                      qpc_rows])
+                      qpc_rows, lam_rows])
     fl_w, fa_w, ftr_w = wave_flags(sched, cw, dev)
     nw = sched["n_waves"]
     m = S // 2
@@ -273,6 +273,7 @@ def encode_frame_intra64_fast(y, u, v, qp: int, *, width: int, height: int,
         views = [ring_views(r, sz) for r, sz in zip(rings, (S, m, m))]
         origs = (oy_w[d], ou_w[d], ov_w[d])
         qps = (qp_w[d], qpc_w[d], qpc_w[d])
+        lam2 = lam_w[d] * lam_w[d] if rdoq else None
 
         def unit(canvases, x0, y0, log2, mode):
             """Predict and code one unit's three planes on the canvases (in
@@ -287,7 +288,7 @@ def encode_frame_intra64_fast(y, u, v, qp: int, *, width: int, height: int,
                 pred = _select(ck.predict_all_modes_flat(a, lg, p == 0), mode)
                 o = orig[:, ys:ys + n, xs:xs + n].reshape(lanes, n * n)
                 planes.append((o, pred, qps[p], lg))
-            out = code_residual_planes(planes, True)
+            out = code_residual_planes(planes, True, rdoq=rdoq, lam2=lam2)
             for p, (cv, (lev, rec)) in enumerate(zip(canvases, out)):
                 sh = 0 if p == 0 else 1
                 n = 1 << (log2 - sh)

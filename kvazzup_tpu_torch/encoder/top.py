@@ -56,13 +56,17 @@ def crop_display(cfg, ry, ru, rv):
     return ry[:dh, :dw], ru[:dh // 2, :dw // 2], rv[:dh // 2, :dw // 2]
 
 
+def _host(x) -> np.ndarray:
+    """A tensor (on any device) or a numpy array, as a numpy array."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def _check_supported(cfg: StreamConfig) -> None:
     common = {
         "bit_depth != 8": cfg.bit_depth != 8,
         "tiles": cfg.tile_cols != 1,
         "slices": cfg.slices != 1,
         "cu_qp_delta": cfg.cu_qp_delta,
-        "rdoq": cfg.rdoq,
         "fast_decision off": not cfg.fast_decision,
         "max_transform_hierarchy_depth_intra": cfg.max_transform_hierarchy_depth_intra != 0,
     }
@@ -91,15 +95,20 @@ def _check_supported(cfg: StreamConfig) -> None:
 
 class Encoder:
     """HEVC encoder: IDR every `intra_period` frames, low-delay P between,
-    on the CTB16 grid or the CTB64 quadtree (`cfg.ctb_log2`)."""
+    on the CTB16 grid or the CTB64 quadtree (`cfg.ctb_log2`).
 
-    def __init__(self, cfg: StreamConfig, intra_period: int = 1, *, device) -> None:
+    vps_period: re-send VPS / SPS / PPS every N IDR pictures (0: with the
+    first frame only), so that a decoder that joins late can start."""
+
+    def __init__(self, cfg: StreamConfig, intra_period: int = 1, *, device,
+                 vps_period: int = 0) -> None:
         _check_supported(cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda":
             runtime.require_cuda()
         self.cfg = cfg
         self.intra_period = max(1, intra_period)
+        self.vps_period = vps_period
         self._idr_count = 0
         self._frame_count = 0
         self._poc = 0
@@ -161,7 +170,8 @@ class Encoder:
         sao = None
         if cfg.sao_enabled:
             ry, ru, rv, sao = self._sao(y, u, v, ry, ru, rv, qp)
-        first = self._frame_count == 0
+        first = self._frame_count == 0 or bool(
+            is_idr and self.vps_period and (self._idr_count - 1) % self.vps_period == 0)
         self._frame_count += 1
         self._poc = 0 if is_idr else self._poc + 1
         self._ref = (ry, ru, rv)
@@ -179,7 +189,8 @@ class Encoder:
         cfg = self.cfg
         nctu = cfg.ctbs_w * cfg.ctbs_h
         if is_idr:
-            out = encode_frame_intra_fast(y, u, v, qp, width=cfg.width, height=cfg.height)
+            out = encode_frame_intra_fast(y, u, v, qp, width=cfg.width, height=cfg.height,
+                                          rdoq=cfg.rdoq)
             bs_v = bs_h = None
         else:
             ry, ru, rv = self._ref
@@ -188,7 +199,8 @@ class Encoder:
                 col = self._zero_col(nctu) if self._col is None else self._col
                 tmvp_kw = dict(tmvp=True, col_mv=col[0], col_inter=col[1])
             out = encode_frame_p_fast(y, u, v, ry, ru, rv, qp, width=cfg.width,
-                                      height=cfg.height, merge_cand=cfg.merge_cand, **tmvp_kw)
+                                      height=cfg.height, merge_cand=cfg.merge_cand,
+                                      rdoq=cfg.rdoq, **tmvp_kw)
             bs_v, bs_h = compute_bs(out["ctype"], (out["lev_y"] != 0).any(dim=2).any(dim=1),
                                     out["mv"], cfg.ctbs_w, cfg.ctbs_h)
         if cfg.temporal_mvp:  # this picture's motion, for the next P's TMVP
@@ -205,7 +217,7 @@ class Encoder:
         cfg = self.cfg
         w, h = cfg.width, cfg.height
         if is_idr:
-            dev = encode_frame_intra64_fast(y, u, v, qp, width=w, height=h)
+            dev = encode_frame_intra64_fast(y, u, v, qp, width=w, height=h, rdoq=cfg.rdoq)
             trees = quad_trees_from_device64(dev, w, h)
             self._col = None  # an IDR reference: all-intra collocated motion
 
@@ -220,7 +232,7 @@ class Encoder:
                     col = self._zero_col(n16)
                 tmvp_kw = dict(tmvp=True, col_mv=col[0], col_inter=col[1])
             dev = encode_frame_p64_fast(y, u, v, *self._ref, qp, width=w, height=h,
-                                        merge_cand=cfg.merge_cand, **tmvp_kw)
+                                        merge_cand=cfg.merge_cand, rdoq=cfg.rdoq, **tmvp_kw)
             trees = quad_p64_trees_from_device(dev, w, h)
             cells = (quad_p_cell_maps(trees, w, h, ctb=64)
                      if cfg.temporal_mvp or cfg.deblocking_enabled else None)
@@ -261,17 +273,20 @@ class Encoder:
             (rv.contiguous(), t_c, aux_cr, off_cr, ctb // 2)])
         return ry, ru, rv, params
 
-    def encode_frame_entropy(self, ctx):
-        """Host stage: CABAC + NAL mux.  Returns (annexb_bytes, recon numpy)."""
+    def encode_frame_entropy(self, ctx, materialize_recon: bool = True):
+        """Host stage: CABAC + NAL mux.  Returns (annexb_bytes, recon): the
+        cropped recon as numpy, or with materialize_recon=False as the
+        device tensors (no device-to-host copy).  The ctx's arrays may be
+        tensors or numpy arrays already fetched to the host."""
         cfg = self.cfg
         out, qp = ctx["out"], ctx["qp"]
 
         def host(name):
-            return out[name].cpu().numpy()
+            return _host(out[name])
 
         sao_state = None
         if ctx["sao"] is not None:
-            typ, aux, offs = (t.cpu().numpy() for t in ctx["sao"])
+            typ, aux, offs = (_host(t) for t in ctx["sao"])
             sao_state = SaoState(cfg.ctbs_w, cfg.ctbs_h, typ=typ, aux=aux, offs=offs)
         entry_offsets = None
         if ctx["kind"] == "quad":
@@ -318,7 +333,10 @@ class Encoder:
         w.write_bytes(payload)
         stream = self.headers() if ctx["first"] else b""
         stream += compose_nal(NalUnit(sh.nal_type, w.data()))
-        return stream, tuple(p.cpu().numpy() for p in crop_display(cfg, *ctx["recon"]))
+        recon = crop_display(cfg, *ctx["recon"])
+        if materialize_recon:
+            recon = tuple(_host(p) for p in recon)
+        return stream, recon
 
     def _p_header(self, qp: int, poc: int) -> SliceHeader:
         cfg = self.cfg

@@ -17,6 +17,9 @@ checked element for element against it in tests/test_torch_ops.py:
 * the 256- and 1024-term row sums of the intra rate estimate are split
   into 32-term windows, each summed in order, then the partials in order
   (`bits_row_sum`).
+* `exp2(x)` is `exp(x * ln 2)` by a Cephes-style polynomial with fused
+  multiply-adds (`exp_f32`), so 2^k for an integer k is not exact: it is
+  one or two ulp off for most k >= 13 (`exp2_int`, the RDOQ step size).
 """
 
 from __future__ import annotations
@@ -74,13 +77,46 @@ def log_f32(x) -> np.ndarray:
     return (m + e * np.float32(0.693359375)).astype(np.float32)
 
 
+_CEPHES_EXP_P = [1.9875691500E-4, 1.3981999507E-3, 8.3334519073E-3, 4.1665795894E-2,
+                 1.6666665459E-1, 5.0000001201E-1]
+EXP2_MAX = 63  # exp2_int covers 0..EXP2_MAX
+
+
+def exp_f32(x) -> np.ndarray:
+    """e^x of float32 values, rounded as the reference's CPU program
+    rounds it: n = floor(x log2(e) + 1/2), r = x - n ln 2 in two steps,
+    a degree-6 polynomial in fused multiply-adds, times 2^n."""
+    x = np.clip(_f32(x), np.float32(-87.8), np.float32(88.8))
+    n = np.floor(_fma_np(x, np.float32(1.44269504088896341), np.float32(0.5)))
+    n = np.clip(n, np.float32(-127), np.float32(127)).astype(np.float32)
+    r = _fma_np(-n, np.float32(0.693359375), x)
+    r = _fma_np(-n, np.float32(-2.12194440e-4), r)
+    p = [np.float32(c) for c in _CEPHES_EXP_P]
+    z = _fma_np(r, p[0], p[1])
+    for c in p[2:]:
+        z = _fma_np(z, r, c)
+    z = _fma_np(z, (r * r).astype(np.float32), r)
+    z = (np.float32(1.0) + z).astype(np.float32)
+    return (z * np.ldexp(np.float32(1.0), n.astype(np.int32))).astype(np.float32)
+
+
+def exp2_int(k):
+    """exp2(float32(k)) for an integer tensor k in 0..EXP2_MAX as the
+    reference's program evaluates it: e^(k * ln 2) with ln 2 rounded to
+    float32 (a table, identical on every device)."""
+    t = device_const("exp2_table", lambda: exp_f32(
+        np.arange(EXP2_MAX + 1, dtype=np.float32) * np.float32(0.693147182)),
+        k.device, torch.float32)
+    return t[k.long()]
+
+
 @functools.lru_cache(maxsize=None)
-def _bits_table_np() -> np.ndarray:
-    """t[v] = 2 * log2(v) + 1 for v = 1..TABLE_MAX (t[0] is unused)."""
+def _bits_table_np(add: float = 1.0) -> np.ndarray:
+    """t[v] = 2 * log2(v) + add for v = 1..TABLE_MAX (t[0] is unused)."""
     v = np.arange(1, TABLE_MAX + 1, dtype=np.float32)
     ln2 = log_f32(np.float32(2.0))
     two_over_ln2 = np.float32(2.0) * (np.float32(1.0) / ln2)
-    t = _fma_np(log_f32(v), two_over_ln2, np.float32(1.0))
+    t = _fma_np(log_f32(v), two_over_ln2, np.float32(add))
     return np.concatenate([np.ones(1, np.float32), t])
 
 
@@ -90,6 +126,15 @@ def bits_of(v):
     t = device_const("bits_table", _bits_table_np, v.device, torch.float32)
     idx = (v.abs().long() + 1).clamp(max=TABLE_MAX)
     return t[idx]
+
+
+def level_rate(v):
+    """RDOQ's rate of a level: 0 for v = 0, else bits_of(v) + 1 (the
+    significance flag).  The reference's program folds the two + 1s into
+    one constant: fma(log(|v| + 1), 2 / ln 2, 2), a single rounding."""
+    t = device_const("level_rate_table", lambda: _bits_table_np(2.0), v.device, torch.float32)
+    idx = (v.abs().long() + 1).clamp(max=TABLE_MAX)
+    return torch.where(v == 0, 0.0, t[idx])
 
 
 def fma(a, b, c):

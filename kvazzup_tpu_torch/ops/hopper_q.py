@@ -9,7 +9,10 @@ launch), built by `runtime.build_kernels`.  `code_residual_rows` /
 `code_residual_planes` route each plane by its block size: 8x8 and 16x16
 blocks through the fused kernel (all such planes of a call in one
 launch), 32x32 blocks (the CTB64 path's TU32s) through the matmul
-transforms around the `kvz_quant` and `kvz_dequant` launches.
+transforms around the `kvz_quant` and `kvz_dequant` launches.  With
+`rdoq=True` every block size takes the matmul chain with the plain
+`quant.rdoq_rows` in place of the quant kernel, and the `kvz_dequant`
+launch (the fused kernel has no RDOQ).
 
 Dispatch is by device only: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel (and raises if the library cannot be built or
@@ -26,6 +29,7 @@ import torch
 from .. import runtime
 from ..core.tables import DEQUANT_SCALES, QUANT_SCALES
 from . import ctu_kernels as ck
+from . import quant as _quant
 from .satd import _satd_tile
 
 LAUNCHES = {"quant": 0, "dequant": 0, "satd": 0, "residual": 0}
@@ -222,15 +226,38 @@ def _launch_residual(planes, flags, group: int, dz: int):
     LAUNCHES["residual"] += 1
 
 
-def code_residual_rows(orig, pred, qp, intra, log2: int, bd: int = 8, group: int = 1):
+def _check_lam2(lam2, rows: int):
+    if lam2 is None:
+        raise ValueError("residual: rdoq needs lam2, lambda^2 per row")
+    runtime.check_operand(lam2, "lam2", 1, (rows,), dtype=torch.float32)
+
+
+def _rdoq_chain(orig, pred, qp, intra, log2: int, group: int, lam2):
+    """The RDOQ route: matmul transforms around `quant.rdoq_rows` and the
+    dequant kernel (its plain version on a CPU tensor)."""
+    lam2 = lam2.repeat_interleave(group) if group > 1 else lam2
+
+    def rdoq(coef, q, dz, lg, bd):
+        return _quant.rdoq_rows(coef, q, dz, lam2, lg, bd)
+
+    return _residual_chain(orig, pred, qp, intra, log2, 8, group, rdoq, dequantize_rows)
+
+
+def code_residual_rows(orig, pred, qp, intra, log2: int, bd: int = 8, group: int = 1, *,
+                       rdoq: bool = False, lam2=None):
     """Residual coding of one plane: (levels, recon) of (R, N^2) int32
     predictions `pred` against `orig`, as `code_residual_rows_plain`.
 
     qp is (R / group,) int32; intra a bool (the deadzone of every row) or an
     (R / group,) bool tensor.  log2 is 3, 4 (one fused launch) or 5 (the
-    32x32 route: one quant and one dequant launch), bd 8."""
+    32x32 route: one quant and one dequant launch), bd 8.  With `rdoq`,
+    lam2 ((R / group,) float32, lambda^2) and the RDOQ route: one dequant
+    launch."""
     rows = _residual_plane(orig, pred, qp, log2, group, "plane")
     flags, dz = _residual_intra(intra, rows // group, bd)
+    if rdoq:
+        _check_lam2(lam2, rows // group)
+        return _rdoq_chain(orig, pred, qp, intra, log2, group, lam2)
     if not runtime.kernel_route(orig, pred, qp, *(() if flags is None else (flags,))):
         return code_residual_rows_plain(orig, pred, qp, intra, log2, bd, group)
     if log2 not in FUSED_LOG2:  # 32x32: the matmul transforms around two launches
@@ -241,10 +268,13 @@ def code_residual_rows(orig, pred, qp, intra, log2: int, bd: int = 8, group: int
     return lev, rec
 
 
-def code_residual_planes(planes, intra):
+def code_residual_planes(planes, intra, *, rdoq: bool = False, lam2=None):
     """Residual coding of up to three planes over the same R rows (a
     unit's luma, Cb and Cr): the 8x8 and 16x16 planes in one fused launch,
-    each 32x32 plane through the quant + dequant route.
+    each 32x32 plane through the quant + dequant route.  With `rdoq` (lam2
+    (R,) float32, lambda^2 per row, shared by the planes) the planes of one
+    block size go through the RDOQ route together: one dequant launch per
+    block size.
 
     Each plane is (orig, pred, qp, log2), as for `code_residual_rows` with
     group 1; intra (a bool or an (R,) bool tensor) is shared by the planes.
@@ -253,6 +283,10 @@ def code_residual_planes(planes, intra):
     rows = planes[0][1].shape[0] if planes[0][1].ndim else 0
     for k, (o, p, q, lg) in enumerate(planes):
         _residual_plane(o, p, q, lg, 1, f"plane {k}", rows)
+    if rdoq:
+        _check_lam2(lam2, rows)
+        _residual_intra(intra, rows, 8)
+        return _rdoq_planes(planes, intra, lam2, rows)
     fused = [k for k, (*_, lg) in enumerate(planes) if lg in FUSED_LOG2]
     n2s = [1 << (2 * planes[k][3]) for k in fused]
     if sum(n2s) > RESIDUAL_MAX_SAMPLES:
@@ -273,4 +307,21 @@ def code_residual_planes(planes, intra):
     for k, (o, p, q, lg) in enumerate(planes):
         if outs[k] is None:
             outs[k] = _residual_chain(o, p, q, intra, lg, 8, 1, quantize_rows, dequantize_rows)
+    return outs
+
+
+def _rdoq_planes(planes, intra, lam2, rows: int):
+    """The RDOQ route of `code_residual_planes`: the planes of each block
+    size stacked by rows through one chain (RDOQ is per row and per
+    coefficient, so stacking changes no level)."""
+    outs = [None] * len(planes)
+    for lg in sorted({p[3] for p in planes}):
+        ks = [k for k, p in enumerate(planes) if p[3] == lg]
+        n = len(ks)
+        o, p, q = (planes[ks[0]][j] if n == 1 else torch.cat([planes[k][j] for k in ks])
+                   for j in range(3))
+        flags = intra.repeat(n) if torch.is_tensor(intra) else intra
+        lev, rec = _rdoq_chain(o, p, q, flags, lg, 1, lam2.repeat(n))
+        for j, k in enumerate(ks):
+            outs[k] = (lev[j * rows:(j + 1) * rows], rec[j * rows:(j + 1) * rows])
     return outs

@@ -363,18 +363,21 @@ def test_deblock_frame(qp, with_bs):
         eq(a, b)
 
 
-@pytest.mark.parametrize("case", ["me_tiles", "deblock_main10", "p_rdoq", "idr_rdoq"])
+@pytest.mark.parametrize("case", ["me_tiles", "deblock_main10", "residual_main10",
+                                  "deblock_qp_map"])
 def test_unported_options_raise(case):
-    from kvazzup_tpu_torch.encoder.frame_inter import encode_frame_p_fast
-    from kvazzup_tpu_torch.encoder.frame_intra import encode_frame_intra_fast
+    from kvazzup_tpu_torch.ops.hopper_q import code_residual_rows
 
     y = torch.zeros((32, 32), dtype=torch.uint8)
     c = torch.zeros((16, 16), dtype=torch.uint8)
+    rows = torch.zeros((4, 256), dtype=torch.int32)
+    qp = torch.full((4,), 30, dtype=torch.int32)
     calls = {
         "me_tiles": lambda: tme.motion_search(y, y, 0, width=32, height=32, xtile=(True, False)),
         "deblock_main10": lambda: tdb.deblock_frame(y, c, c, 30, bd=10),
-        "p_rdoq": lambda: encode_frame_p_fast(y, c, c, y, c, c, 30, width=32, height=32, rdoq=True),
-        "idr_rdoq": lambda: encode_frame_intra_fast(y, c, c, 30, width=32, height=32, rdoq=True),
+        "residual_main10": lambda: code_residual_rows(rows, rows, qp, True, 4, bd=10),
+        "deblock_qp_map": lambda: tdb.deblock_frame(y, c, c, 30,
+                                                    qp_map=torch.full((2, 2), 30)),
     }
     with pytest.raises(NotImplementedError):
         calls[case]()

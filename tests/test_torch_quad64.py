@@ -133,7 +133,7 @@ def test_cli_ctu64_matches_encoder(frames, tmp_path, runs):
 
 
 @pytest.mark.parametrize("argv", [["--ctu", "32"], ["--ctu", "64", "--slices", "2"],
-                                  ["--ctu", "64", "--bitdepth", "10"], ["--ctu", "64", "--rdoq"],
+                                  ["--ctu", "64", "--bitdepth", "10"], ["--ctu", "64", "--gop", "ra"],
                                   ["--ctu", "64", "--tiles", "2"]])
 def test_cli_unported_ctb64_options_raise(frames, tmp_path, argv):
     from kvazzup_tpu_torch.cli import main
@@ -145,7 +145,7 @@ def test_cli_unported_ctb64_options_raise(frames, tmp_path, argv):
               "--device", "cpu"])
 
 
-@pytest.mark.parametrize("kw", [dict(fast_decision=False), dict(rdoq=True), dict(min_cb_log2=4),
+@pytest.mark.parametrize("kw", [dict(fast_decision=False), dict(max_tb_log2=4), dict(min_cb_log2=4),
                                 dict(cu_qp_delta=True), dict(slices=2), dict(tile_cols=2),
                                 dict(bit_depth=10), dict(max_transform_hierarchy_depth_intra=1),
                                 dict(ctb_log2=5)])

@@ -351,9 +351,13 @@ def test_p64_trees_and_bs_maps_match_reference(p64):
 def test_unported_p64_options_raise():
     z = torch.zeros((128, 256), dtype=torch.uint8)
     zc = torch.zeros((64, 128), dtype=torch.uint8)
-    for kw in (dict(rdoq=True), dict(xtile=(True, False))):
+    for kw in (dict(xtile=(True, False)), dict(xtile=(False, True))):
         with pytest.raises(NotImplementedError):
             encode_frame_p64_fast(z, zc, zc, z, zc, zc, 30, width=256, height=128, **kw)
+    tu32 = torch.zeros((4, 1024), dtype=torch.int32)  # the TU32 route at Main10
+    with pytest.raises(NotImplementedError):
+        hopper_q.code_residual_rows(tu32, tu32, torch.full((4,), 30, dtype=torch.int32), True, 5,
+                                    bd=10)
     with pytest.raises(NotImplementedError):
         frame_intra64.encode_frame_intra64_fast(z, zc, zc, 30, width=256, height=128,
                                                 bit_depth=10)

@@ -4,8 +4,9 @@
 CLI's defaults (CTB16, deblocking on): the port's Annex-B stream must be
 byte-identical to the JAX `Encoder`'s, for merge 1 and merge 5; the JAX
 `Decoder` must decode it to the port's reconstruction; the encoder state
-must carry over from JAX to the port; and the port must import neither JAX
-nor the JAX package.
+must carry over from JAX to the port; the port's `PipelinedEncoder`,
+`vps_period`, CLI `--bitrate` and rate controller must equal their JAX
+counterparts; and the port must import neither JAX nor the JAX package.
 """
 
 import os
@@ -89,6 +90,83 @@ def test_snapshot_restore_from_jax(runs, frames):
     assert enc2.snapshot()["frame_count"] == NF
 
 
+@pytest.mark.parametrize("depth", [1, 3])
+def test_pipelined_encoder_matches_jax_encoder(runs, frames, depth):
+    """The port's PipelinedEncoder on the CPU: the JAX Encoder's bytes and
+    recon, frame by frame, at one and three frames in flight."""
+    from kvazzup_tpu_torch.encoder.pipelined import PipelinedEncoder
+
+    js, jr, _, _ = runs[1]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)  # interleave the three threads finely
+    try:
+        with PipelinedEncoder(_cfg(), intra_period=64, depth=depth, device="cpu") as pe:
+            got = []
+            for i, f in enumerate(frames):
+                got += pe.push(*f)
+                assert len(got) >= i + 1 - depth  # at most `depth` frames in flight
+            got += pe.flush()
+            assert pe.stage["frames"] == NF and pe.stage["fetch_bytes"] > 0
+    finally:
+        sys.setswitchinterval(switch)
+    assert [s for s, _ in got] == js
+    for (_, a), b in zip(got, jr):
+        for pa, pb in zip(a, b):
+            np.testing.assert_array_equal(pa, np.asarray(pb))
+
+
+def test_vps_period_matches_jax_encoder(frames):
+    """Headers re-sent at every IDR (vps_period 1, an IDR every 2 frames),
+    byte-identical to the JAX Encoder."""
+    jenc = JaxEncoder(_cfg(), intra_period=2, vps_period=1)
+    js = [jenc.encode_frame(*f)[0] for f in frames]
+    enc = Encoder(_cfg(), intra_period=2, device="cpu", vps_period=1)
+    ts = [enc.encode_frame(*f)[0] for f in frames]
+    assert ts == js
+    headers = enc.headers()
+    assert [s.startswith(headers) for s in ts] == [True, False, True, False]
+
+
+def test_cli_bitrate_matches_jax_cli(frames, tmp_path, runs):
+    """`--bitrate` drives the rate controller per frame as the JAX CLI does:
+    the same QP sequence, so the same stream."""
+    from kvazzup_tpu.cli import main as jax_main
+
+    from kvazzup_tpu_torch.cli import main
+
+    src = tmp_path / "in.yuv"
+    write_yuv420(str(src), frames)
+    flags = ["--size", f"{W}x{H}", "--qp", str(QP), "--bitrate", "24000", "--fps", "25"]
+    jout, tout = tmp_path / "jax.265", tmp_path / "port.265"
+    assert jax_main(["encode", str(src), str(jout), *flags]) == 0
+    assert main(["encode", str(src), str(tout), *flags, "--device", "cpu"]) == 0
+    assert tout.read_bytes() == jout.read_bytes()
+    assert tout.read_bytes() != b"".join(runs[1][0])  # the QP moved
+
+
+def test_rate_controller_matches_jax():
+    """The port's copy of the rate controller gives the JAX one's QPs when
+    fed the same bit counts, live retargeting included."""
+    from kvazzup_tpu.pipeline.rate_control import RateController as JaxRC
+
+    from kvazzup_tpu_torch.pipeline.rate_control import RateController
+
+    rng = np.random.default_rng(4)
+    rcs = [RateController(1_500_000, 30, base_qp=32), JaxRC(1_500_000, 30, base_qp=32)]
+    qps = [[], []]
+    for i in range(120):
+        is_idr = i % 32 == 0
+        bits = float(rng.integers(20_000, 400_000 if is_idr else 120_000))
+        if i == 60:
+            for rc in rcs:
+                rc.retarget(600_000)
+        for rc, q in zip(rcs, qps):
+            q.append(rc.frame_qp(is_idr))
+            rc.update(q[-1], bits, is_idr)
+    assert qps[0] == qps[1]
+    assert len(set(qps[0])) > 5
+
+
 def test_cpu_encode_launches_no_kernel(frames):
     hopper_q.reset_launches()
     Encoder(_cfg(), intra_period=64, device="cpu").encode_frame(*frames[0])
@@ -97,7 +175,7 @@ def test_cpu_encode_launches_no_kernel(frames):
 
 @pytest.mark.parametrize("kw", [dict(slices=2), dict(cu_qp_delta=True),
                                 dict(ctb_log2=5, min_cb_log2=3, max_tb_log2=5),
-                                dict(rdoq=True), dict(bit_depth=10),
+                                dict(max_transform_hierarchy_depth_intra=1), dict(bit_depth=10),
                                 dict(fast_decision=False)])
 def test_unported_configs_raise(kw):
     with pytest.raises(NotImplementedError):

@@ -5,7 +5,7 @@ Encodes `kvazzup_tpu.io.yuv.synthetic_frames(W, H, N, seed)` with the JAX
 on, merge 1, intra period 64), with `--sao` at the CLI's `--sao`
 configuration (SAO on, which at CTB16 turns WPP on), with `--ctu 64` at
 the CLI's CTB64 quadtree configuration (min CU 8, max TU 32), and with
-`--merge`, `--wpp` and `--tmvp` as the JAX CLI builds them, and records, per
+`--merge`, `--wpp`, `--tmvp` and `--rdoq` as the JAX CLI builds them, and records, per
 frame, the SHA-256 and byte length of the Annex-B output plus a SHA-256 of
 the reconstruction.  `chip_smoke.py` encodes the same frames with
 `kvazzup_tpu_torch` on the GPU and compares against these files.
@@ -19,6 +19,9 @@ Runs on the CPU (JAX only; the port's package is not imported):
         --out kvazzup_tpu_torch/golden/ld64_prod_1080p_q32.json
     python tools/torch_golden.py --merge 5 --tmvp \
         --out kvazzup_tpu_torch/golden/ld_tmvp_1080p_q32.json
+    python tools/torch_golden.py --rdoq --out kvazzup_tpu_torch/golden/ld_rdoq_1080p_q32.json
+    python tools/torch_golden.py --ctu 64 --wpp --sao --merge 5 --tmvp --rdoq \
+        --out kvazzup_tpu_torch/golden/ld64_prod_rdoq_1080p_q32.json
     python tools/torch_golden.py --width 96 --height 64 --out /tmp/g.json
 """
 
@@ -68,12 +71,13 @@ def main(argv=None) -> int:
                     help="CTB size: 16, or the 64 quadtree (min CU 8, max TU 32)")
     ap.add_argument("--wpp", action="store_true", help="wavefront entry points")
     ap.add_argument("--tmvp", action="store_true", help="temporal motion vector prediction")
+    ap.add_argument("--rdoq", action="store_true", help="rate-distortion optimized quantization")
     ap.add_argument("--out", default=None,
                     help="default: kvazzup_tpu_torch/golden/ld[64][_sao]_1080p_q32.json")
     args = ap.parse_args(argv)
     if args.out is None:
-        if args.wpp or args.tmvp or args.merge != 1:
-            ap.error("--wpp, --tmvp and --merge need --out")
+        if args.wpp or args.tmvp or args.rdoq or args.merge != 1:
+            ap.error("--wpp, --tmvp, --rdoq and --merge need --out")
         name = f"ld{'64' if args.ctu == 64 else ''}{'_sao' if args.sao else ''}_1080p_q32.json"
         args.out = os.path.join(GOLDEN_DIR, name)
 
@@ -81,7 +85,8 @@ def main(argv=None) -> int:
     cfg = StreamConfig.for_source(args.width, args.height, qp=args.qp,
                                   merge_cand=args.merge, sao_enabled=args.sao,
                                   wpp=args.wpp or (args.sao and not quad),
-                                  temporal_mvp=args.tmvp, ctb_log2=6 if quad else 4,
+                                  temporal_mvp=args.tmvp, rdoq=args.rdoq,
+                                  ctb_log2=6 if quad else 4,
                                   min_cb_log2=3 if quad else 4, max_tb_log2=5 if quad else 4)
     enc = Encoder(cfg, intra_period=args.intra_period)
     frames = synthetic_frames(args.width, args.height, args.frames, seed=args.seed)

@@ -1,11 +1,13 @@
-"""Count the ATen operations of the port's plain residual chains and of
-the P wave's plain merge search (CPU).
+"""Count the ATen operations of the port's plain residual chains, of the
+RDOQ route and of the P wave's plain merge search (CPU).
 
     python tools/torch_op_count.py
 
 Runs `hopper_q.code_residual_planes` (one wave: a 16x16 luma and two 8x8
 chroma blocks per lane), the IDR mode prepass's `code_residual_rows`
-(`group=3`) and `merge.merge_search_plain` at 1, 3 and 5 merge candidates
+(`group=3`), the wave's RDOQ route (`rdoq=True`; on the CPU its dequant
+runs the plain version too) and `quant.rdoq_rows` alone, and
+`merge.merge_search_plain` at 1, 3 and 5 merge candidates
 (luma MC, SATD, cost and argmin of one wave) on CPU tensors, which take
 the plain PyTorch versions, under torch.profiler, and prints the number of
 leaf ATen operations that would launch a device kernel (views, reshapes
@@ -24,7 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from kvazzup_tpu_torch.ops import hopper_q, merge  # noqa: E402
+from kvazzup_tpu_torch.ops import hopper_q, merge, quant  # noqa: E402
 
 NO_LAUNCH = {
     "aten::view", "aten::reshape", "aten::_reshape_alias", "aten::as_strided",
@@ -65,6 +67,12 @@ def main() -> int:
         "IDR prepass, group 3": leaf_ops(lambda: hopper_q.code_residual_rows(
             pix(lanes, 256), pix(3 * lanes, 256), pix(lanes), True, 4, group=3)),
     }
+    lam2 = torch.rand(lanes, generator=gen) * 1000
+    counts["wave, RDOQ route"] = leaf_ops(lambda: hopper_q.code_residual_planes(
+        planes, flags, rdoq=True, lam2=lam2))
+    dz = torch.full((lanes,), 171, dtype=torch.int32)
+    counts["rdoq_rows alone"] = leaf_ops(lambda: quant.rdoq_rows(
+        pix(lanes, 256) * 64, pix(lanes) % 52, dz, lam2, 4))
     win = torch.randint(0, 256, (lanes, 55, 55), generator=gen, dtype=torch.uint8)
     orig, lam = pix(lanes, 256), torch.rand(lanes, generator=gen) * 100
     for k_cands in (1, 3, 5):
