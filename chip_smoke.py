@@ -8,7 +8,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   2. each hand kernel (SATD, quant, dequant, the fused residual coding, SAO
      apply, the P wave's merge search) against its plain PyTorch version on
      the card at the 1080p main-path shapes of the CTB16 and CTB64 paths
-     (SATD also at 4x4, 8x8, 32x32 and 64x64 blocks; quant and dequant at
+     and of the CTB64 B path (SATD at the B prepass's L0 / L1 / BI rows
+     and the B arbitration's 5 + 3 candidate sets, one picture and levels
+     of two and four; dequant at the RDOQ route's shapes of those levels;
+     SATD also at 4x4, 8x8, 32x32 and 64x64 blocks; quant and dequant at
      the CTB64 path's 32x32 transform shapes; dequant at the RDOQ route's
      stacked chroma shapes; SATD at the CTB64 wave's
      arbitration shapes with 1 and 5 merge candidates; the residual kernel
@@ -22,8 +25,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      (`quant.quantize_rdoq`, plain PyTorch) on the card equal to the CPU at
      all 52 QPs and 4x4 to 32x32 blocks;
   3. seven 1920x1080 encodes of synthetic_frames(1920, 1080, 4, seed=12)
-     at QP 32 through `Encoder` on cuda, IDR + 3 P (`--sao` IDR + 2 P and
-     `--ctu 64 --sao` IDR + P, prefixes of their goldens): the CLI defaults,
+     at QP 32 through `Encoder` on cuda, IDR + 3 P (`--sao` and `--ctu 64
+     --sao` IDR + P, the production combo with and without `--rdoq` IDR +
+     2 P: prefixes of their goldens): the CLI defaults,
      `--sao` (SAO + WPP), `--ctu 64 --sao` (the CTB64 quadtree with SAO),
      the JAX package's production combo `--ctu 64 --wpp --sao --merge 5
      --tmvp`, CTB16 `--merge 5 --tmvp`, and `--rdoq` at CTB16 and with the
@@ -40,6 +44,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the first two of ld64_prod_1080p_q32.json, each frame held against the
      golden, launches as counted; prints the e2e frame rate and the stage
      seconds beside phase 3's sequential times of the same frames;
+  RA. random access at CTB64: synthetic_frames(1920, 1080, 9, seed=12) at
+     QP 32 with `--gop ra --ctu 64 --wpp --sao --merge 5 --tmvp --rdoq`,
+     intra period 64 (an IDR and one gop8 group: P8, B4, {B2, B6} and {B1,
+     B3, B5, B7}, each level in one batched device call) through
+     `QuadRABatchEncoder` on cuda, every picture held against
+     kvazzup_tpu_torch/golden/ra64_prod_rdoq_1080p_q32.json in decode
+     order (POC, bytes, SHA-256, recon SHA-256); prints each picture's
+     device and entropy ms, the launches of every kernel (counted from the
+     code, `expected_launches`) and the peak device memory;
   5. kernel vs plain times at the main-path shapes (CUDA events around 20
      calls, the least of 5 runs: at the wave shapes this is the wrapper's
      host path per call), the kernel's own device time per call
@@ -67,6 +80,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from kvazzup_tpu_torch import runtime
 from kvazzup_tpu_torch.encoder.pipelined import PipelinedEncoder
+from kvazzup_tpu_torch.encoder.ra_batch import QuadRABatchEncoder
 from kvazzup_tpu_torch.encoder.top import Encoder
 from kvazzup_tpu_torch.encoder.wavefront import schedule_r
 from kvazzup_tpu_torch.inputs import stream_config, synthetic_frames
@@ -77,15 +91,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(ROOT, "kvazzup_tpu_torch", "golden")
 # phase 3: (configuration, golden, frames encoded: a prefix of the golden's).
 # The CTB16 --sao path (the Python CABAC tier) and CTB64 --sao (the kernels
-# and launch rules of the production combo, which runs in full) are cut in
-# depth to keep the script inside its time limit.
-PATHS = (("low-delay", "ld_1080p_q32.json", 4), ("low-delay --sao", "ld_sao_1080p_q32.json", 3),
+# and launch rules of the production combo) are cut in depth to keep the
+# script inside its time limit.  Both production paths keep a P that reads
+# a P's motion store (the RA phase's P anchor reads an I picture's only).
+PATHS = (("low-delay", "ld_1080p_q32.json", 4), ("low-delay --sao", "ld_sao_1080p_q32.json", 2),
          ("low-delay --ctu 64 --sao", "ld64_sao_1080p_q32.json", 2),
-         ("low-delay --ctu 64 --wpp --sao --merge 5 --tmvp", "ld64_prod_1080p_q32.json", 4),
+         ("low-delay --ctu 64 --wpp --sao --merge 5 --tmvp", "ld64_prod_1080p_q32.json", 3),
          ("low-delay --merge 5 --tmvp", "ld_tmvp_1080p_q32.json", 4),
          ("low-delay --rdoq", "ld_rdoq_1080p_q32.json", 4),
          ("low-delay --ctu 64 --wpp --sao --merge 5 --tmvp --rdoq",
-          "ld64_prod_rdoq_1080p_q32.json", 4))
+          "ld64_prod_rdoq_1080p_q32.json", 3))
+RA_GOLDEN = "ra64_prod_rdoq_1080p_q32.json"
+# the RA phase's device calls: the IDR, P8, B4, then the levels {B2, B6} and
+# {B1, B3, B5, B7} (QuadRABatchEncoder._LEVELS)
+RA_CALLS = ("quad", "quad_p", "quad_b1", "quad_b2", "quad_b4")
 # phase 4: (golden, frames) through PipelinedEncoder
 PIPELINED = (("ld_1080p_q32.json", 4), ("ld64_prod_1080p_q32.json", 2))
 SOURCE = {"satd": "kvazzup_tpu_torch/csrc/q_kernels.cu",
@@ -304,6 +323,7 @@ def kernel_cases(dev):
             lambda r=rec, a=typ, b=aux, o=offs, c=ctb: sao.sao_apply_plain(r, a, b, o, ctb=c),
             (rec, typ, aux, offs))
     cases += quad64_cases(dev, rng, add)
+    b64_cases(dev, rng, add)
     cases += merge_cases(dev, rng)
     return cases
 
@@ -398,6 +418,42 @@ def quad64_cases(dev, rng, add):
                       [x for p in planes for x in p[:4]],
                       OPS_PER_ELEM["sao"] * sum(p[0].numel() for p in planes)))
     return cases
+
+
+def b64_cases(dev, rng, add) -> None:
+    """The CTB64 B path's shapes at 1080p (`encoder/frame_b64.py`): SATD of
+    the prepass's L0, L1 and BI costs at 64, 32 and 16 (one call for each);
+    of a wave's arbitration, 5 merge candidates + L0 + L1 + BI per lane,
+    for one picture (17 lanes) and pyramid levels of two and four (34 and
+    68 lanes) at each CU size; and the RDOQ route's dequant rows of the
+    levels of two and four."""
+    def pix(*s):
+        return torch.from_numpy(rng.integers(0, 256, s).astype(np.int32)).to(dev)
+
+    def satd(label, rows, log2):
+        a, b = pix(rows, 1 << 2 * log2), pix(rows, 1 << 2 * log2)
+        add("satd", label, lambda: hopper_q.satd_rows(a, b, log2),
+            lambda: hopper_q.satd_rows_plain(a, b, log2), (a, b))
+
+    for rows, log2 in ((NCTB64, 6), (4 * NCTB64, 5), (16 * NCTB64, 4)):
+        satd(f"B dense CU{1 << log2} ({rows},{1 << 2 * log2})", rows, log2)
+    for nb in (1, 2, 4):
+        for log2 in (6, 5, 4):
+            rows = 8 * LANES64 * nb
+            satd(f"B arbitration x{nb} CU{1 << log2} ({rows},{1 << 2 * log2})", rows, log2)
+    for nb in (2, 4):  # one picture's rows are the P wave's (quad64_cases)
+        lanes = nb * LANES64
+        for rows, log2, label in ((lanes, 4, "CU16 luma"), (2 * lanes, 3, "CU16 Cb+Cr"),
+                                  (lanes, 5, "CU32 luma"), (2 * lanes, 4, "CU32 Cb+Cr"),
+                                  (4 * lanes, 5, "CU64 leaf luma"),
+                                  (8 * lanes, 4, "CU64 leaf Cb+Cr")):
+            lv = torch.from_numpy(rng.integers(-32768, 32768, (rows, 1 << 2 * log2))
+                                  .astype(np.int32)).to(dev)
+            qp = torch.from_numpy(rng.integers(0, 52, (rows,)).astype(np.int32)).to(dev)
+            add("dequant", f"RDOQ B x{nb} {label} ({rows},{1 << 2 * log2})",
+                lambda lv=lv, qp=qp, lg=log2: hopper_q.dequantize_rows(lv, qp, lg),
+                lambda lv=lv, qp=qp, lg=log2: hopper_q.dequantize_rows_plain(lv, qp, lg),
+                (lv, qp))
 
 
 def merge_cases(dev, rng):
@@ -527,7 +583,8 @@ def golden_config(golden):
     gcfg = golden["config"]
     cfg = stream_config(golden["width"], golden["height"], qp=golden["qp"],
                         merge=golden["merge_cand"], sao=gcfg["sao"], wpp=gcfg["wpp"],
-                        tmvp=gcfg["tmvp"], rdoq=gcfg["rdoq"], ctu=1 << gcfg["ctb_log2"])
+                        tmvp=gcfg["tmvp"], rdoq=gcfg["rdoq"], ctu=1 << gcfg["ctb_log2"],
+                        gop=gcfg.get("gop", "ld"))
     if ((cfg.sao_enabled, cfg.wpp, cfg.temporal_mvp, cfg.rdoq, cfg.ctb_log2)
             != (gcfg["sao"], gcfg["wpp"], gcfg["tmvp"], gcfg["rdoq"], gcfg["ctb_log2"])
             or cfg.min_cb_log2 != gcfg.get("min_cb_log2", cfg.min_cb_log2)
@@ -643,6 +700,52 @@ def pipelined_1080p(dev, golden, n: int, seq_rows) -> tuple[dict, dict]:
     return res, counts
 
 
+def encode_ra_1080p(dev, golden) -> tuple[list, dict, int]:
+    """The RA golden's frames through QuadRABatchEncoder on the card (no
+    warm-up of its own: the earlier phases ran the CTB64 I and P engines
+    and the shared machinery); every picture is held against the golden in
+    decode order.  Returns the per-picture rows, the kernel launches and
+    the peak device memory in bytes."""
+    w, h = golden["width"], golden["height"]
+    cfg = golden_config(golden)
+    frames = synthetic_frames(w, h, golden["n_frames"], seed=golden["seed"])
+    enc = QuadRABatchEncoder(cfg, gop_size=8, intra_period=golden["intra_period"], device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    out = []
+    for f in frames:
+        out += enc.push_frame(*f)
+    out += enc.flush()
+    torch.cuda.synchronize()
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    rows = []
+    times = {tm["poc"]: tm for tm in enc.times}
+    for poc, stream, recon in out:
+        tm = times[poc]
+        rows.append({"poc": poc, "kind": tm["kind"], "batch": tm["batch"], "bytes": len(stream),
+                     "sha256": hashlib.sha256(stream).hexdigest(),
+                     "recon_sha256": recon_sha256(recon), "device_ms": tm["device_ms"],
+                     "entropy_ms": tm["entropy_ms"]})
+    bad = []
+    for r, g in zip(rows, golden["frames"]):
+        ok = (r["poc"], r["bytes"], r["sha256"]) == (g["poc"], g["bytes"], g["sha256"])
+        rok = r["recon_sha256"] == g["recon_sha256"]
+        log(f"  POC {r['poc']} ({r['kind']}, device call of {r['batch']}): {r['bytes']} bytes "
+            f"(golden POC {g['poc']}, {g['bytes']}) sha256 {'match' if ok else 'MISMATCH'}; "
+            f"recon {'match' if rok else 'MISMATCH'}; device {r['device_ms']:.1f} ms "
+            f"(its share of the call), entropy {r['entropy_ms']:.1f} ms")
+        if not (ok and rok):
+            bad.append(r["poc"])
+    log(f"  kernel launches during the RA encode: {counts}")
+    log(f"  peak device memory: {peak} bytes ({peak / 2**20:.1f} MiB)")
+    if len(rows) != len(golden["frames"]) or bad:
+        raise AssertionError(f"RA stream or recon differs from the JAX golden at POCs {bad}")
+    check_launches(cfg, list(RA_CALLS), counts)
+    return rows, counts, peak
+
+
 def expected_launches(cfg, kinds) -> dict:
     """Each kernel's launches in an encode of frames of `kinds`, counted
     from the code of the path.
@@ -666,31 +769,40 @@ def expected_launches(cfg, kinds) -> dict:
     leaf's eight chroma TU16s, quant + dequant per CU32 and once for the
     CU64's four TU32s.  SAO once per frame with SAO on; no merge search.
 
+    CTB64 B (kind "quad_bN": one device call of N pictures, a pyramid
+    level side by side in the lanes): SATD 11 times per picture in the
+    prepasses (the L0, L1 and BI costs at 64, 32 and 16, the intra
+    estimates at 32 and 16) and 21 times a wave (one per arbitration); the
+    residual coding as in a P wave.
+
     With RDOQ the prepasses are unchanged and every wave's residual coding
     takes the RDOQ route: no residual or quant launch, one dequant launch
     per block size of a unit (Cb and Cr stacked).  CTB16: 2 a wave (luma
     16x16, chroma 8x8).  CTB64 IDR: per 32-quadrant a CU32 (32x32, 16x16)
     and four CU16s (16x16, 8x8), and the CU64 leaf's four units (32x32,
-    16x16): 48 a wave.  CTB64 P: four CU32s and sixteen CU16s (2 each) and
-    the CU64 leaf's TU32 luma and TU16 chroma (1 each): 42 a wave."""
+    16x16): 48 a wave.  CTB64 P and B: four CU32s and sixteen CU16s (2
+    each) and the CU64 leaf's TU32 luma and TU16 chroma (1 each): 42 a
+    wave."""
     n_waves = schedule_r(cfg.ctbs_w, cfg.ctbs_h)["n_waves"]
+    b_calls = [int(k[len("quad_b"):]) for k in kinds if k.startswith("quad_b")]
     n_idr = sum(k in ("idr", "quad") for k in kinds)
-    n_p = len(kinds) - n_idr
-    sao_n = len(kinds) if cfg.sao_enabled else 0
+    n_p = sum(k in ("p", "quad_p") for k in kinds)
+    n_pics = n_idr + n_p + sum(b_calls)
+    sao_n = n_pics if cfg.sao_enabled else 0
     if cfg.ctb_log2 == 4:
-        counts = {"residual": len(kinds) * n_waves + n_idr, "merge": n_p * n_waves,
+        counts = {"residual": n_pics * n_waves + n_idr, "merge": n_p * n_waves,
                   "satd": n_idr + 2 * n_p, "sao": sao_n, "quant": 0, "dequant": 0}
         if cfg.rdoq:
-            counts.update(residual=n_idr, dequant=2 * len(kinds) * n_waves)
+            counts.update(residual=n_idr, dequant=2 * n_pics * n_waves)
         return counts
+    n_inter = n_p + len(b_calls)  # device calls with inter waves
+    satd = 2 * n_idr + n_p * (5 + 21 * n_waves) + sum(11 * nb + 21 * n_waves for nb in b_calls)
     if cfg.rdoq:
-        return {"residual": n_idr, "merge": 0, "satd": 2 * n_idr + n_p * (5 + 21 * n_waves),
-                "sao": sao_n, "quant": 2 * n_idr,
-                "dequant": n_idr * (2 + 48 * n_waves) + n_p * 42 * n_waves}
-    q = n_idr * (2 + 8 * n_waves) + n_p * 5 * n_waves
-    return {"residual": n_idr * (1 + 24 * n_waves) + n_p * 21 * n_waves, "merge": 0,
-            "satd": 2 * n_idr + n_p * (5 + 21 * n_waves), "sao": sao_n, "quant": q,
-            "dequant": q}
+        return {"residual": n_idr, "merge": 0, "satd": satd, "sao": sao_n, "quant": 2 * n_idr,
+                "dequant": n_idr * (2 + 48 * n_waves) + n_inter * 42 * n_waves}
+    q = n_idr * (2 + 8 * n_waves) + n_inter * 5 * n_waves
+    return {"residual": n_idr * (1 + 24 * n_waves) + n_inter * 21 * n_waves, "merge": 0,
+            "satd": satd, "sao": sao_n, "quant": q, "dequant": q}
 
 
 def main() -> int:
@@ -733,6 +845,12 @@ def main() -> int:
         for k in KERNELS:
             total[k] += counts[k]
 
+    log(f"phase RA: 1080p random access on cuda vs JAX golden {RA_GOLDEN}")
+    with open(os.path.join(GOLDEN_DIR, RA_GOLDEN)) as f:
+        ra_rows, counts, ra_peak = encode_ra_1080p(dev, json.load(f))
+    for k in KERNELS:
+        total[k] += counts[k]
+
     log("phase 5: kernel vs plain times (CUDA events, mean of 20 calls, least of 5 runs; "
         "device: profiler, mean of 20 calls)")
     times = {}
@@ -750,7 +868,11 @@ def main() -> int:
                 "plain_ms": times[n][1], "bound_ms": times[n][2], "bound_by": times[n][3],
                 "library_ms": None, "device_ms": times[n][4]}
                for n in KERNELS]
-    log(json.dumps({"frames": frames, "pipelined": pipelined}))
+    log(json.dumps({"frames": frames, "pipelined": pipelined,
+                    "ra": {"pictures": [{k: r[k] for k in ("poc", "kind", "batch", "bytes",
+                                                           "device_ms", "entropy_ms")}
+                                        for r in ra_rows],
+                           "launches": counts, "peak_bytes": ra_peak}}))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,10 @@
 """Command-line encoder for the PyTorch port (counterpart of the
-`encode` command of kvazzup_tpu/cli.py, low-delay CTB16 and CTB64).
+`encode` command of kvazzup_tpu/cli.py: low-delay CTB16 and CTB64, and
+random access at CTB64).
 
     python -m kvazzup_tpu_torch encode in.y4m out.265 [--qp 32] [--frames N]
         [--size WxH] [--intra-period 64] [--merge 1..5] [--no-deblock]
-        [--sao] [--wpp] [--tmvp] [--rdoq] [--ctu 16|64]
+        [--sao] [--wpp] [--tmvp] [--rdoq] [--ctu 16|64] [--gop ld|ra]
         [--bitrate BPS [--fps 30]] [--device cuda|cpu]
 
 `--sao` turns WPP on as well at CTB16 (the JAX CLI's rule without tiles);
@@ -12,6 +13,12 @@ WPP is `--wpp` alone.  The JAX package's production configuration is
 `--ctu 64 --wpp --sao --merge 5 --tmvp`.  `--rdoq` quantizes by RDOQ;
 `--bitrate` picks each frame's QP by the rate controller of
 `pipeline.rate_control` (`--qp` is its starting QP), as the JAX CLI does.
+`--gop ra --ctu 64` is the random-access B pyramid the JAX CLI runs there:
+`QuadRABatchEncoder` with gop 8 and the intra period rounded down to a
+multiple of 8, each picture's NAL written in decode order, at `--qp` (as
+in the JAX CLI, `--bitrate` drives the low-delay path only).  The JAX
+package's production configuration is `--gop ra --ctu 64 --wpp --sao
+--merge 5 --tmvp --rdoq`.
 
 Flags of the JAX CLI that select other configurations are accepted only at
 their default value; anything else raises NotImplementedError.
@@ -24,8 +31,8 @@ import sys
 import time
 
 # flag -> default value; any other value selects an unported path
-_UNPORTED = {"tiles": 1, "slices": 1,
-             "tu_intra_depth": 1, "cu8": False, "bitdepth": 8, "gop": "ld"}
+_UNPORTED = {"tiles": 1, "slices": 1, "tu_intra_depth": 1, "cu8": False, "bitdepth": 8,
+             "cutree": 0.0}
 
 
 def _read_input(path: str, size: str | None, max_frames: int | None):
@@ -47,6 +54,8 @@ def cmd_encode(args) -> int:
     bad = [k for k, dflt in _UNPORTED.items() if getattr(args, k) != dflt]
     if args.ctu == 32:
         bad.append("ctu 32")
+    if args.gop == "ra" and args.ctu != 64:
+        bad.append(f"gop ra at --ctu {args.ctu}")
     if bad:
         raise NotImplementedError(
             f"not ported to kvazzup_tpu_torch: --{', --'.join(b.replace('_', '-') for b in bad)}")
@@ -55,7 +64,9 @@ def cmd_encode(args) -> int:
         raise SystemExit("no frames read")
     cfg = stream_config(w, h, qp=args.qp, deblock=not args.no_deblock, merge=args.merge,
                         sao=args.sao, wpp=args.wpp, tmvp=args.tmvp, rdoq=args.rdoq,
-                        ctu=args.ctu)
+                        ctu=args.ctu, gop=args.gop)
+    if args.gop == "ra":
+        return _encode_ra(args, cfg, frames, w, h)
     rc = None
     if args.bitrate:
         from .pipeline.rate_control import RateController
@@ -79,6 +90,30 @@ def cmd_encode(args) -> int:
             total_psnr += psnr(y, recon[0])
     dt = time.time() - t0
     print(f"encoded {len(frames)} frames {w}x{h} qp{args.qp} on {args.device}: "
+          f"{nbytes} bytes, {dt:.2f}s ({len(frames) / dt:.2f} fps), "
+          f"mean PSNR-Y {total_psnr / len(frames):.2f} dB")
+    return 0
+
+
+def _encode_ra(args, cfg, frames, w: int, h: int) -> int:
+    from .encoder.ra_batch import QuadRABatchEncoder
+    from .inputs import psnr
+
+    ip = max(8, args.intra_period - args.intra_period % 8)
+    enc = QuadRABatchEncoder(cfg, gop_size=8, intra_period=ip, device=args.device)
+    t0 = time.time()
+    nbytes, total_psnr = 0, 0.0
+    with open(args.output, "wb") as f:
+        out = []
+        for y, u, v in frames:
+            out += enc.push_frame(y, u, v)
+        out += enc.flush()
+        for poc, nal, recon in out:
+            f.write(nal)
+            nbytes += len(nal)
+            total_psnr += psnr(frames[poc][0], recon[0])
+    dt = time.time() - t0
+    print(f"encoded {len(frames)} frames {w}x{h} qp{args.qp} (RA gop 8) on {args.device}: "
           f"{nbytes} bytes, {dt:.2f}s ({len(frames) / dt:.2f} fps), "
           f"mean PSNR-Y {total_psnr / len(frames):.2f} dB")
     return 0
@@ -111,7 +146,9 @@ def main(argv=None) -> int:
     pe.add_argument("--tu-intra-depth", type=int, choices=(1, 2), default=1)
     pe.add_argument("--cu8", action="store_true")
     pe.add_argument("--bitdepth", type=int, choices=(8, 10), default=8)
-    pe.add_argument("--gop", choices=["ld", "ra"], default="ld")
+    pe.add_argument("--gop", choices=["ld", "ra"], default="ld",
+                    help="ra: the random-access B pyramid (--ctu 64)")
+    pe.add_argument("--cutree", type=float, default=0.0)
     pe.set_defaults(fn=cmd_encode)
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -197,30 +197,43 @@ def cost_prepass_grid(y, oy_flat, lam_rows, *, log2: int, cw: int, ch: int,
 # ------------------------------------------------------------ wave helpers
 
 
-def wave_inputs(sched, nctu: int, arrays):
-    """Gather per-CTU arrays into (n_waves, lanes, ...) wave order."""
-    idx = torch.as_tensor(np.minimum(sched["idx"], nctu - 1).reshape(-1),
-                          device=arrays[0].device)
-    shape = sched["idx"].shape
-    return [a[idx].reshape(shape + tuple(a.shape[1:])) for a in arrays]
+def wave_inputs(sched, nctu: int, arrays, frames: int = 1):
+    """Gather per-CTU arrays into (n_waves, lanes, ...) wave order.  With
+    `frames` > 1 the arrays hold that many pictures' CTUs one after the
+    other, and each picture takes its own block of lanes: (n_waves,
+    frames * lanes, ...)."""
+    idx = np.minimum(sched["idx"], nctu - 1)
+    idx = (idx[:, None, :] + nctu * np.arange(frames)[None, :, None]).reshape(idx.shape[0], -1)
+    idx_t = torch.as_tensor(idx.reshape(-1), device=arrays[0].device)
+    return [a[idx_t].reshape(idx.shape + tuple(a.shape[1:])) for a in arrays]
 
 
-def wave_to_raster(sched, out):
-    """(n_waves, lanes, ...) -> (nctu, ...) raster order."""
+def wave_to_raster(sched, out, frames: int = 1):
+    """(n_waves, lanes, ...) -> (nctu, ...) raster order; with `frames` > 1
+    (n_waves, frames * lanes, ...) -> (frames, nctu, ...)."""
     perm = torch.as_tensor(sched["perm"], device=out.device)
-    return out.reshape((-1,) + tuple(out.shape[2:]))[perm]
+    if frames == 1:
+        return out.reshape((-1,) + tuple(out.shape[2:]))[perm]
+    nw, rest = out.shape[0], tuple(out.shape[2:])
+    per = out.reshape((nw, frames, -1) + rest).transpose(0, 1)
+    return per.reshape((frames, -1) + rest)[:, perm]
 
 
-def wave_flags(sched, cw: int, device):
-    """(n_waves, lanes) left / above / above-right availability."""
+def wave_flags(sched, cw: int, device, frames: int = 1):
+    """(n_waves, frames * lanes) left / above / above-right availability."""
     rs, cs = sched["rs"], sched["cs"]
-    return tuple(torch.as_tensor(f, device=device) for f in
+    return tuple(torch.as_tensor(np.tile(f, (1, frames)), device=device) for f in
                  (cs > 0, rs > 0, (rs > 0) & (cs + 1 < cw)))
 
 
-def _shift_lanes(x):
-    """Move every lane down by one (lane 0 gets zeros)."""
-    return torch.cat([torch.zeros_like(x[:1]), x[:-1]], dim=0)
+def _shift_lanes(x, frames: int = 1):
+    """Move every lane down by one (lane 0 gets zeros); with `frames` > 1,
+    inside each picture's block of lanes, so no row leaks into the next
+    picture's first."""
+    if frames == 1:
+        return torch.cat([torch.zeros_like(x[:1]), x[:-1]], dim=0)
+    g = x.reshape((frames, -1) + tuple(x.shape[1:]))
+    return torch.cat([torch.zeros_like(g[:, :1]), g[:, :-1]], dim=1).reshape(x.shape)
 
 
 def ring_boundary(ring_bot, ring_rcol, n: int):

@@ -27,8 +27,9 @@ from ..core.tables import CHROMA_QP_TABLE
 from ..ops import ctu_kernels as ck
 from ..ops.costs import bits_row_sum, fma
 from ..ops.hopper_q import code_residual_planes, code_residual_rows
-from .frame_intra import (LAMBDA, from_blocks, mode_bits_table, mode_sweep, rd_prepass_grid,
-                          ring0, ring_push, to_blocks, wave_flags, wave_inputs, wave_to_raster)
+from .frame_intra import (LAMBDA, _shift_lanes, from_blocks, mode_bits_table, mode_sweep,
+                          rd_prepass_grid, ring0, ring_push, to_blocks, wave_flags, wave_inputs,
+                          wave_to_raster)
 from .frame_intra32 import ZO, subst_quad
 from .wavefront import schedule_r
 
@@ -131,15 +132,15 @@ def unit_walk(canvas, rings, spec, n: int, flags, bd: int = 8):
                       fvec(bl_f), fvec(l_f), fvec(c_f), fvec(t_f), fvec(tr_f), bd=bd)
 
 
-def ring_views(ring, size: int):
+def ring_views(ring, size: int, frames: int = 1):
     """The walk sources of a 3-wave ring (slot 0 = wave d-1): the left
     CTB's right column, and the above / above-right / above-left CTBs'
     bottom rows and corner sample, shifted down one lane (lane k = CTB row
-    k)."""
+    k; with `frames` pictures, inside each picture's block of lanes)."""
     rb, rr = ring
 
     def shift(x):
-        return torch.cat([torch.zeros_like(x[:1]), x[:-1]], dim=0)
+        return _shift_lanes(x, frames)
 
     return {"Lcol": rr[0], "Trow": shift(rb[1]), "TRrow": shift(rb[0]),
             "Cpix": shift(rb[2])[:, size - 1:size]}

@@ -12,6 +12,12 @@ CTU; CTB64: on the 16x16 grid, from the trees) -> host CABAC (CTB16:
 parameters precede each CTU's syntax; CTB64: the native quadtree writer,
 `entropy.quad`) -> NAL mux, with WPP entry points when `cfg.wpp`.
 Configurations outside those two branches raise NotImplementedError.
+
+Random access at CTB64 (the JAX CLI's `--gop ra --ctu 64`) is ported too:
+`encoder/ra.py` `QuadRAEncoder` and `encoder/ra_batch.py`
+`QuadRABatchEncoder` code their I and P anchors through `quad64_picture`
+and their B pictures through `encoder/frame_b64.py`, with the loop filters
+of this module (`deblock_quad`, `sao_filter`).
 """
 
 from __future__ import annotations
@@ -93,6 +99,81 @@ def _check_supported(cfg: StreamConfig) -> None:
         raise ValueError("coded size must be CTB-aligned (use StreamConfig.for_source)")
 
 
+def quad64_picture(cfg, y, u, v, qp: int, ref=None, col=None):
+    """One CTB64 picture's device stage: the I encode (`ref` None) or the P
+    encode against the loop-filtered planes `ref`, with TMVP reading `col`
+    (the reference picture's motion store on the 16x16 grid; None: all
+    intra), its trees on the host, and deblocking on the 8-sample grid with
+    the trees' bS maps.  Returns (trees, planes, this picture's motion
+    store: None for an I picture or without TMVP)."""
+    w, h = cfg.width, cfg.height
+    dev = y.device
+    if ref is None:
+        out = encode_frame_intra64_fast(y, u, v, qp, width=w, height=h, rdoq=cfg.rdoq)
+        trees = quad_trees_from_device64(out, w, h)
+        col = None
+
+        def bs_maps():  # bS 2 on every CU / TU edge
+            return (*quad_bs_maps(trees, w, h, cfg.ctb_log2), 0)
+    else:
+        tmvp_kw = {}
+        if cfg.temporal_mvp:
+            n16 = (w // 16) * (h // 16)
+            if col is None or col[0].shape[0] != n16:
+                col = (torch.zeros((n16, 2), dtype=torch.int32, device=dev),
+                       torch.zeros((n16,), dtype=torch.int32, device=dev))
+            tmvp_kw = dict(tmvp=True, col_mv=col[0], col_inter=col[1])
+        out = encode_frame_p64_fast(y, u, v, *ref, qp, width=w, height=h,
+                                    merge_cand=cfg.merge_cand, rdoq=cfg.rdoq, **tmvp_kw)
+        trees = quad_p64_trees_from_device(out, w, h)
+        cells = (quad_p_cell_maps(trees, w, h, ctb=64)
+                 if cfg.temporal_mvp or cfg.deblocking_enabled else None)
+        col = None
+        if cfg.temporal_mvp:  # the 16x16-compressed store: each cell's top-left 4x4
+            mv4, inter4, _ = cells
+            col = (torch.as_tensor(np.ascontiguousarray(mv4[::4, ::4].reshape(-1, 2)), device=dev),
+                   torch.as_tensor(np.ascontiguousarray(inter4[::4, ::4].reshape(-1)), device=dev))
+
+        def bs_maps():  # per 4-sample segment, from the 4x4-cell maps
+            return (*quad_p_bs_maps(trees, *cells, w, h, ctb=64), 4)
+    planes = out["recon_y"], out["recon_u"], out["recon_v"]
+    if cfg.deblocking_enabled:
+        planes = deblock_quad(cfg, planes, qp, *bs_maps())
+    return trees, planes, col
+
+
+def deblock_quad(cfg, planes, qp: int, bs_v, bs_h, bs_rep: int):
+    """Deblocking of a quadtree picture on the 8-sample grid with host bS
+    maps (bs_rep 0: one bS per 8-sample segment, 4: per 4 samples)."""
+    dev = planes[0].device
+    return deblock_frame(*planes, qp, spacing=8, bs_v=torch.as_tensor(bs_v, device=dev),
+                         bs_h=torch.as_tensor(bs_h, device=dev), chroma_every=2, bs_rep=bs_rep)
+
+
+def sao_filter(cfg, y, u, v, ry, ru, rv, qp: int):
+    """SAO on the deblocked planes: luma decided at the CTB size, Cb and Cr
+    jointly at half of it (shared type and class).  Returns the filtered
+    planes and the parameters stacked [luma, Cb, Cr] as (typ, aux, offs)
+    tensors on the device."""
+    ctb = cfg.ctb_size
+    lam = sao_lambda(qp)
+    t_l, aux_l, off_l, _ = sao_decide(y, ry, lam, ctb=ctb)
+    t_c, _cls, aux_cb, aux_cr, off_cb, off_cr = sao_decide_chroma(u, ru, v, rv, lam, ctb=ctb // 2)
+    params = (torch.stack([t_l, t_c, t_c]), torch.stack([aux_l, aux_cb, aux_cr]),
+              torch.stack([off_l, off_cb, off_cr]))
+    ry, ru, rv = sao_apply_planes([
+        (ry.contiguous(), t_l, aux_l, off_l, ctb),
+        (ru.contiguous(), t_c, aux_cb, off_cb, ctb // 2),
+        (rv.contiguous(), t_c, aux_cr, off_cr, ctb // 2)])
+    return ry, ru, rv, params
+
+
+def sao_state(cfg, params):
+    """The entropy coder's SaoState of `sao_filter`'s parameters."""
+    typ, aux, offs = (_host(t) for t in params)
+    return SaoState(cfg.ctbs_w, cfg.ctbs_h, typ=typ, aux=aux, offs=offs)
+
+
 class Encoder:
     """HEVC encoder: IDR every `intra_period` frames, low-delay P between,
     on the CTB16 grid or the CTB64 quadtree (`cfg.ctb_log2`).
@@ -169,7 +250,7 @@ class Encoder:
             out, (ry, ru, rv) = self._ctb16(y, u, v, qp, is_idr)
         sao = None
         if cfg.sao_enabled:
-            ry, ru, rv, sao = self._sao(y, u, v, ry, ru, rv, qp)
+            ry, ru, rv, sao = sao_filter(cfg, y, u, v, ry, ru, rv, qp)
         first = self._frame_count == 0 or bool(
             is_idr and self.vps_period and (self._idr_count - 1) % self.vps_period == 0)
         self._frame_count += 1
@@ -212,66 +293,10 @@ class Encoder:
         return out, planes
 
     def _quad64(self, y, u, v, qp: int, is_idr: bool):
-        """CTB64 device encode, its trees on the host, and deblocking on
-        the 8-sample grid with the trees' bS maps: ({"trees"}, planes)."""
-        cfg = self.cfg
-        w, h = cfg.width, cfg.height
-        if is_idr:
-            dev = encode_frame_intra64_fast(y, u, v, qp, width=w, height=h, rdoq=cfg.rdoq)
-            trees = quad_trees_from_device64(dev, w, h)
-            self._col = None  # an IDR reference: all-intra collocated motion
-
-            def bs_maps():  # bS 2 on every CU / TU edge
-                return (*quad_bs_maps(trees, w, h, cfg.ctb_log2), 0)
-        else:
-            tmvp_kw = {}
-            if cfg.temporal_mvp:
-                n16 = (w // 16) * (h // 16)
-                col = self._col
-                if col is None or col[0].shape[0] != n16:
-                    col = self._zero_col(n16)
-                tmvp_kw = dict(tmvp=True, col_mv=col[0], col_inter=col[1])
-            dev = encode_frame_p64_fast(y, u, v, *self._ref, qp, width=w, height=h,
-                                        merge_cand=cfg.merge_cand, rdoq=cfg.rdoq, **tmvp_kw)
-            trees = quad_p64_trees_from_device(dev, w, h)
-            cells = (quad_p_cell_maps(trees, w, h, ctb=64)
-                     if cfg.temporal_mvp or cfg.deblocking_enabled else None)
-            if cfg.temporal_mvp:  # the 16x16-compressed store: each cell's top-left 4x4
-                mv4, inter4, _ = cells
-                self._col = (
-                    torch.as_tensor(np.ascontiguousarray(mv4[::4, ::4].reshape(-1, 2)),
-                                    device=self.device),
-                    torch.as_tensor(np.ascontiguousarray(inter4[::4, ::4].reshape(-1)),
-                                    device=self.device))
-
-            def bs_maps():  # per 4-sample segment, from the 4x4-cell maps
-                return (*quad_p_bs_maps(trees, *cells, w, h, ctb=64), 4)
-        planes = dev["recon_y"], dev["recon_u"], dev["recon_v"]
-        if cfg.deblocking_enabled:
-            bv, bh, rep = bs_maps()
-            planes = deblock_frame(*planes, qp, spacing=8,
-                                   bs_v=torch.as_tensor(bv, device=self.device),
-                                   bs_h=torch.as_tensor(bh, device=self.device),
-                                   chroma_every=2, bs_rep=rep)
+        """CTB64 device encode and deblocking: ({"trees"}, planes)."""
+        trees, planes, self._col = quad64_picture(self.cfg, y, u, v, qp,
+                                                  None if is_idr else self._ref, self._col)
         return {"trees": trees}, planes
-
-    def _sao(self, y, u, v, ry, ru, rv, qp: int):
-        """SAO on the deblocked planes: luma decided at the CTB size, Cb and
-        Cr jointly at half of it (shared type and class).  Returns the
-        filtered planes and the parameters stacked [luma, Cb, Cr] as
-        (typ, aux, offs) tensors on the device."""
-        ctb = self.cfg.ctb_size
-        lam = sao_lambda(qp)
-        t_l, aux_l, off_l, _ = sao_decide(y, ry, lam, ctb=ctb)
-        t_c, _cls, aux_cb, aux_cr, off_cb, off_cr = sao_decide_chroma(
-            u, ru, v, rv, lam, ctb=ctb // 2)
-        params = (torch.stack([t_l, t_c, t_c]), torch.stack([aux_l, aux_cb, aux_cr]),
-                  torch.stack([off_l, off_cb, off_cr]))
-        ry, ru, rv = sao_apply_planes([
-            (ry.contiguous(), t_l, aux_l, off_l, ctb),
-            (ru.contiguous(), t_c, aux_cb, off_cb, ctb // 2),
-            (rv.contiguous(), t_c, aux_cr, off_cr, ctb // 2)])
-        return ry, ru, rv, params
 
     def encode_frame_entropy(self, ctx, materialize_recon: bool = True):
         """Host stage: CABAC + NAL mux.  Returns (annexb_bytes, recon): the
@@ -284,33 +309,30 @@ class Encoder:
         def host(name):
             return _host(out[name])
 
-        sao_state = None
-        if ctx["sao"] is not None:
-            typ, aux, offs = (_host(t) for t in ctx["sao"])
-            sao_state = SaoState(cfg.ctbs_w, cfg.ctbs_h, typ=typ, aux=aux, offs=offs)
+        sao = None if ctx["sao"] is None else sao_state(cfg, ctx["sao"])
         entry_offsets = None
         if ctx["kind"] == "quad":
             if cfg.wpp:
                 payload, entry_offsets = encode_slice_data_intra_quad_wpp(
-                    cfg, out["trees"], slice_qp=qp, sao=sao_state)
+                    cfg, out["trees"], slice_qp=qp, sao=sao)
             else:
                 payload = encode_slice_data_intra_quad(cfg, out["trees"], slice_qp=qp,
-                                                       sao=sao_state)
+                                                       sao=sao)
             sh = SliceHeader(slice_type=2, qp=qp, nal_type=NalType.IDR_W_RADL,
                              sao_luma=cfg.sao_enabled, sao_chroma=cfg.sao_enabled)
         elif ctx["kind"] == "quad_p":
             if cfg.wpp:
                 payload, entry_offsets = encode_slice_data_p_quad_wpp(
-                    cfg, out["trees"], slice_qp=qp, sao=sao_state, merge_k=cfg.merge_cand)
+                    cfg, out["trees"], slice_qp=qp, sao=sao, merge_k=cfg.merge_cand)
             else:
                 payload = encode_slice_data_p_quad(cfg, out["trees"], slice_qp=qp,
-                                                   sao=sao_state, merge_k=cfg.merge_cand)
+                                                   sao=sao, merge_k=cfg.merge_cand)
             sh = self._p_header(qp, ctx["poc"])
         elif ctx["kind"] == "idr":
             arrays = (host("mode"), host("lev_y"), host("lev_cb"), host("lev_cr"))
             if cfg.wpp:
                 payload, entry_offsets = encode_slice_data_intra_wpp(
-                    cfg, *arrays, sao=sao_state, slice_qp=qp)
+                    cfg, *arrays, sao=sao, slice_qp=qp)
             else:
                 payload = encode_slice_data_intra(cfg, *arrays, slice_qp=qp)
             sh = SliceHeader(slice_type=2, qp=qp, nal_type=NalType.IDR_W_RADL,
@@ -323,7 +345,7 @@ class Encoder:
                       host("mvd"), host("lev_y"), host("lev_cb"), host("lev_cr"))
             if cfg.wpp:
                 payload, entry_offsets = encode_slice_data_p_wpp(
-                    cfg, *arrays, slice_qp=qp, sao=sao_state, **merge_kw)
+                    cfg, *arrays, slice_qp=qp, sao=sao, **merge_kw)
             else:
                 payload = encode_slice_data_p(cfg, *arrays, slice_qp=qp, **merge_kw)
             sh = self._p_header(qp, ctx["poc"])

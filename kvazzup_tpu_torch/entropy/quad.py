@@ -1,9 +1,10 @@
 """CU-quadtree slice data through the native CABAC writer (counterpart of
-the native frontend of kvazzup_tpu/entropy/quad.py: I and P slices, with
-or without WPP; no tiles or cu_qp_delta).
+the native frontend of kvazzup_tpu/entropy/quad.py: I, P and B slices,
+with or without WPP, so the low-delay CTB64 path and random access at
+CTB64; no tiles or cu_qp_delta).
 
 The decision trees (the reference's cu32 format, from
-`encoder/frame_intra64` and `encoder/frame_inter64`) are flattened into a
+`encoder/frame_intra64`, `encoder/frame_inter64` and `encoder/frame_b64`) are flattened into a
 token stream and a level stream (`_serialize_trees`) for
 `native.encode_slice_quad_native`, which writes 7.3.8 syntax with SAO
 parameters before each CTU when given, and with WPP one substream per CTB
@@ -49,6 +50,14 @@ def _serialize_trees(cfg, trees, slice_type: int):
             toks.append(ct)
             if ct in (1, 3):
                 toks.append(int(node["merge_idx"]))
+            elif ct == 2 and slice_type == 0:
+                # B AMVP: [inter_dir] + (mvd_x mvd_y mvp) per active list
+                dr = int(node["inter_dir"])
+                toks.append(dr)
+                for li in range(2):
+                    if dr & (1 << li):
+                        toks.extend((int(node["mvd"][li][0]), int(node["mvd"][li][1]),
+                                     int(node["mvp_flag"][li])))
             elif ct == 2:
                 toks.extend((int(node["mvd"][0]), int(node["mvd"][1]), int(node["mvp_flag"])))
             if ct:
@@ -107,3 +116,14 @@ def encode_slice_data_intra_quad_wpp(cfg, trees, slice_qp=None, sao=None):
 def encode_slice_data_p_quad_wpp(cfg, trees, slice_qp=None, sao=None, merge_k: int = 1):
     """WPP P-slice data: as `encode_slice_data_intra_quad_wpp`."""
     return _native_quad(cfg, trees, 1, True, slice_qp, sao, merge_k)
+
+
+def encode_slice_data_b_quad(cfg, trees, slice_qp=None, sao=None, merge_k: int = 1) -> bytes:
+    """B-slice data of the quadtree trees (one slice, init_type 2): inter
+    leaves code inter_pred_idc and each active list's mvd and mvp flag."""
+    return _native_quad(cfg, trees, 0, False, slice_qp, sao, merge_k)[0]
+
+
+def encode_slice_data_b_quad_wpp(cfg, trees, slice_qp=None, sao=None, merge_k: int = 1):
+    """WPP B-slice data: as `encode_slice_data_intra_quad_wpp`."""
+    return _native_quad(cfg, trees, 0, True, slice_qp, sao, merge_k)

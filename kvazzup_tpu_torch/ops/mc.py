@@ -58,6 +58,12 @@ def uni_round(p14):
     return ((p14 + 32) >> 6).clamp(0, 255)
 
 
+def bi_round(p14_l0, p14_l1):
+    """Default bi-prediction combine (8.5.4.2.3): (L0 + L1 + 64) >> 7 of
+    two 14-bit predictions, clipped to the sample range."""
+    return ((p14_l0 + p14_l1 + 64) >> 7).clamp(0, 255)
+
+
 def mc_window_origin(search_range: int, chroma: bool = False) -> int:
     return (search_range // 2 if chroma else search_range) + (1 if chroma else 3)
 

@@ -133,7 +133,8 @@ def test_cli_ctu64_matches_encoder(frames, tmp_path, runs):
 
 
 @pytest.mark.parametrize("argv", [["--ctu", "32"], ["--ctu", "64", "--slices", "2"],
-                                  ["--ctu", "64", "--bitdepth", "10"], ["--ctu", "64", "--gop", "ra"],
+                                  ["--ctu", "64", "--bitdepth", "10"],
+                                  ["--ctu", "64", "--gop", "ra", "--cutree", "1"],
                                   ["--ctu", "64", "--tiles", "2"]])
 def test_cli_unported_ctb64_options_raise(frames, tmp_path, argv):
     from kvazzup_tpu_torch.cli import main

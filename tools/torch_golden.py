@@ -23,6 +23,14 @@ Runs on the CPU (JAX only; the port's package is not imported):
     python tools/torch_golden.py --ctu 64 --wpp --sao --merge 5 --tmvp --rdoq \
         --out kvazzup_tpu_torch/golden/ld64_prod_rdoq_1080p_q32.json
     python tools/torch_golden.py --width 96 --height 64 --out /tmp/g.json
+
+With `--gop ra` (CTB64 only) the frames go through the JAX CLI's random-access
+encoder instead, `QuadRAEncoder` with gop 8 and the intra period rounded down
+to a multiple of 8, and the digests are per picture in decode order, each
+with its POC:
+
+    python tools/torch_golden.py --gop ra --ctu 64 --wpp --sao --merge 5 --tmvp --rdoq \
+        --frames 9 --out kvazzup_tpu_torch/golden/ra64_prod_rdoq_1080p_q32.json
 """
 
 from __future__ import annotations
@@ -72,35 +80,58 @@ def main(argv=None) -> int:
     ap.add_argument("--wpp", action="store_true", help="wavefront entry points")
     ap.add_argument("--tmvp", action="store_true", help="temporal motion vector prediction")
     ap.add_argument("--rdoq", action="store_true", help="rate-distortion optimized quantization")
+    ap.add_argument("--gop", choices=("ld", "ra"), default="ld",
+                    help="ra: the CTB64 random-access B pyramid (gop 8)")
     ap.add_argument("--out", default=None,
                     help="default: kvazzup_tpu_torch/golden/ld[64][_sao]_1080p_q32.json")
     args = ap.parse_args(argv)
     if args.out is None:
-        if args.wpp or args.tmvp or args.rdoq or args.merge != 1:
-            ap.error("--wpp, --tmvp, --rdoq and --merge need --out")
+        if args.wpp or args.tmvp or args.rdoq or args.merge != 1 or args.gop == "ra":
+            ap.error("--wpp, --tmvp, --rdoq, --merge and --gop ra need --out")
         name = f"ld{'64' if args.ctu == 64 else ''}{'_sao' if args.sao else ''}_1080p_q32.json"
         args.out = os.path.join(GOLDEN_DIR, name)
 
     quad = args.ctu == 64
+    ra = args.gop == "ra"
+    if ra and not quad:
+        ap.error("--gop ra needs --ctu 64")
     cfg = StreamConfig.for_source(args.width, args.height, qp=args.qp,
                                   merge_cand=args.merge, sao_enabled=args.sao,
                                   wpp=args.wpp or (args.sao and not quad),
                                   temporal_mvp=args.tmvp, rdoq=args.rdoq,
                                   ctb_log2=6 if quad else 4,
-                                  min_cb_log2=3 if quad else 4, max_tb_log2=5 if quad else 4)
-    enc = Encoder(cfg, intra_period=args.intra_period)
+                                  min_cb_log2=3 if quad else 4, max_tb_log2=5 if quad else 4,
+                                  num_reorder_pics=3 if ra else 0,
+                                  max_dec_pic_buffering=6 if ra else 2)
     frames = synthetic_frames(args.width, args.height, args.frames, seed=args.seed)
     out = []
-    for i, (y, u, v) in enumerate(frames):
-        t0 = time.time()
-        stream, recon = enc.encode_frame(y, u, v)
-        out.append({"frame": i, "bytes": len(stream),
+    t0 = time.time()
+
+    def record(stream, recon, **key):
+        out.append({**key, "bytes": len(stream),
                     "sha256": hashlib.sha256(stream).hexdigest(),
                     "recon_sha256": recon_digest(recon)})
-        print(f"frame {i}: {len(stream)} bytes ({time.time() - t0:.1f}s)",
-              flush=True)
+        print(f"{key}: {len(stream)} bytes ({time.time() - t0:.1f}s)", flush=True)
+
+    if ra:
+        from kvazzup_tpu.encoder.ra import QuadRAEncoder
+
+        args.intra_period = max(8, args.intra_period - args.intra_period % 8)
+        enc = QuadRAEncoder(cfg, gop_size=8, intra_period=args.intra_period)
+        for (y, u, v) in frames:
+            for poc, stream, recon in enc.push_frame(y, u, v):
+                record(stream, recon, frame=len(out), poc=poc)
+        for poc, stream, recon in enc.flush():
+            record(stream, recon, frame=len(out), poc=poc)
+    else:
+        enc = Encoder(cfg, intra_period=args.intra_period)
+        for i, (y, u, v) in enumerate(frames):
+            t0 = time.time()
+            record(*enc.encode_frame(y, u, v), frame=i)
     doc = {
-        "source": "kvazzup_tpu.encoder.top.Encoder (JAX, CPU backend)",
+        "source": ("kvazzup_tpu.encoder.ra.QuadRAEncoder gop 8 (JAX, CPU backend), "
+                   "pictures in decode order" if ra else
+                   "kvazzup_tpu.encoder.top.Encoder (JAX, CPU backend)"),
         "frames_from": "kvazzup_tpu.io.yuv.synthetic_frames",
         "width": args.width, "height": args.height, "n_frames": args.frames,
         "seed": args.seed, "qp": args.qp, "merge_cand": args.merge,
@@ -109,7 +140,8 @@ def main(argv=None) -> int:
                    "max_tb_log2": cfg.max_tb_log2, "coded_width": cfg.width,
                    "coded_height": cfg.height, "deblocking": cfg.deblocking_enabled,
                    "sao": cfg.sao_enabled, "wpp": cfg.wpp, "rdoq": cfg.rdoq,
-                   "tmvp": cfg.temporal_mvp, "fast_decision": cfg.fast_decision},
+                   "tmvp": cfg.temporal_mvp, "fast_decision": cfg.fast_decision,
+                   "gop": args.gop},
         "frames": out,
     }
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

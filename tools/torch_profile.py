@@ -1,7 +1,7 @@
 """Where the time goes in the PyTorch port's 1080p low-delay encode (GPU).
 
     python tools/torch_profile.py [--width 1920 --height 1080 --qp 32] [--ctu 16|64]
-        [--prod]
+        [--prod | --ra]
 
 Warms up on a throwaway encoder (IDR + P), then for one IDR and one P
 frame of `synthetic_frames(W, H, 3, seed=12)` at CTB 16 (default), the
@@ -16,6 +16,13 @@ frame is the second, the first that reads a motion store):
     alone, and reports the kernel count, summed kernel time, device busy
     share of the wall time, the top kernels by device time, and the launches
     and device time of each hand-written kernel (`csrc/*.cu`).
+With `--ra` it profiles the random-access engines of the production combo
+with `--rdoq` instead (`tools/torch_bench.ra_engine_calls` at the gop8's
+layer QPs): the P anchor (`encode_frame_p64_fast`, zero motion store),
+one B picture and a pyramid level of four B pictures
+(`encode_frame_b64_fast` without and with its batch axis), on source
+frames as references, after one untimed B picture: the B prepass and
+wave-loop times, then each call's device events per wave and busy share.
 Needs a CUDA device; prints one JSON line last.
 """
 
@@ -93,8 +100,12 @@ def main(argv=None) -> int:
     ap.add_argument("--ctu", type=int, choices=(16, 64), default=16)
     ap.add_argument("--prod", action="store_true",
                     help="the production combo --ctu 64 --wpp --sao --merge 5 --tmvp")
+    ap.add_argument("--ra", action="store_true",
+                    help="the RA engines of the production combo with --rdoq: P anchor, B, B x4")
     args = ap.parse_args(argv)
     dev = runtime.require_cuda()
+    if args.ra:
+        return profile_ra(args, dev)
     if args.ctu == 64 or args.prod:
         return profile_ctb64(args, dev)
     cfg = stream_config(args.width, args.height, qp=args.qp)
@@ -244,6 +255,39 @@ def profile_ctb64(args, dev) -> int:
         *raw[2 if cfg.temporal_mvp else 1])),)))
     print(json.dumps({"card": torch.cuda.get_device_name(0), "ctu": 64, "prod": args.prod,
                       "stages_ms": stages, "profile": prof}), flush=True)
+    return 0
+
+
+def profile_ra(args, dev) -> int:
+    """The RA engines at the production combo with RDOQ: the B prepass and
+    wave-loop times of one picture and of a level of four, then the
+    profiler's view of a P anchor, a B picture and a B level."""
+    from kvazzup_tpu_torch.encoder import frame_b64
+    from torch_bench import ra_engine_calls
+
+    cfg = stream_config(args.width, args.height, qp=args.qp, ctu=64, wpp=True, sao=True,
+                        merge=5, tmvp=True, rdoq=True, gop="ra")
+    w, h, qp = cfg.width, cfg.height, cfg.qp
+    pl = [tuple(torch.as_tensor(p, device=dev) for p in pad_to_coded(cfg, *f))
+          for f in synthetic_frames(args.width, args.height, 9, seed=12)]
+    calls = ra_engine_calls(cfg, pl, layer_qp=True)
+    p_anchor, b_one, b_four = calls["p_anchor"], calls["b64"], calls["b64x4"]
+
+    timed(b_one)  # first use of the B engine's shapes in this process: not timed
+    stages = {}
+    _, stages["b64_prepass"] = timed(lambda: frame_b64._prepass(
+        *pl[4], ((*pl[3],), (*pl[5],)), qp + 1, w, h))
+    _, stages["b64_total"] = timed(b_one)
+    _, stages["b64x4_total"] = timed(b_four)
+    stages["b64_wave_loop_and_rest"] = stages["b64_total"] - stages["b64_prepass"]
+    stages["b64x4_wave_loop_and_rest"] = stages["b64x4_total"] - 4 * stages["b64_prepass"]
+    _, stages["p64_anchor_total"] = timed(p_anchor)
+    for k, t in stages.items():
+        print(f"{k:28s} {t:10.3f} ms", flush=True)
+    prof = profile_frames(cfg, (("p64_anchor", p_anchor), ("b64", b_one), ("b64x4", b_four)))
+    print(json.dumps({"card": torch.cuda.get_device_name(0), "ra": True, "stages_ms": stages,
+                      "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                      "profile": prof}), flush=True)
     return 0
 
 
